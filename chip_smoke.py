@@ -8,15 +8,27 @@ Phases, each fatal on failure (no phase catches its own error):
 1. device: the card's name and power limit, torch / CUDA / nvcc / Triton
    versions; exits non-zero without a CUDA device;
 2. build: nvcc builds the kernels from ``tagdust_tpu_torch/engine/csrc``;
-3. kernels: K1-K3 against their plain PyTorch versions on the same CUDA
-   tensors, flagship model (20 x 6nt barcodes + R:N), B=16384, Lp=64, read
-   lengths 40-64; median of 5 timed runs of each (CUDA events);
-4. main path: a default-flag ``tagdust -engine cuda`` run (per-run
-   calibration, streaming decided labelling, demultiplexed FASTQ) over a
-   generated 1M-read FASTQ, through the port's CLI entry point; checks the
-   launch counters, that every read is written, and barcode precision;
-5. cross-check: the first 20,000 reads with ``-Q 20`` on ``-engine cuda``
-   and ``-engine exact``; per-read outcomes must agree on >= 99.9%.
+3. kernels: every kernel against its plain PyTorch version on the same CUDA
+   tensors, B=16384, Lp=64, read lengths 40-64, median of 5 timed runs of
+   each (CUDA events): K1-K4 dense and grouped on the flagship model (20 x
+   6nt barcodes + R:N), K1-K4 grouped and K4 dense on the 96 x 8nt plate;
+   K4's logP_b must equal K1's bit for bit;
+4. gate: dense against grouped K1+K2 at 8, 20, 48 and 96 barcodes, beside
+   the FMA counts the step-mode gate reads;
+5. main paths, each through the port's CLI entry point with the launch
+   counts set to 0 just before it and read just after; every kernel of the
+   path must have launched, no plain version may run on CUDA tensors,
+   every read must be written, barcode precision >= 0.99:
+   a. a default-flag ``tagdust -engine cuda`` run over a generated 1M-read
+      flagship FASTQ (per-run calibration, streaming decided labelling);
+   b. the same over 200k reads of an 8 x 6nt library (dense step mode);
+   c. ``tagdust -arch`` over a generated 1M-read 96-plex FASTQ with the
+      flagship, the plate and R:N as candidates: detection on the card
+      (K4), then the plate's demultiplex in the grouped step mode; the
+      plate must win;
+6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
+   ``-Q 20``: the flagship, and the ``-arch`` run (the same winner and
+   confidence); per-read outcomes must agree on >= 99.9%.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -36,11 +48,18 @@ import time
 import numpy as np
 
 SOURCE = "tagdust_tpu_torch/engine/csrc/fused_dp.cu"
-KERNELS = [  # (counter, name, Pallas kernel it replaces)
-    ("bwd", "td_bwd", "tagdust_tpu/engine/pallas_kernel.py:350"),
-    ("fwd", "td_fwd", "tagdust_tpu/engine/pallas_kernel.py:384"),
-    ("tb", "td_tb", "tagdust_tpu/engine/pallas_kernel.py:535"),
+PK = "tagdust_tpu/engine/pallas_kernel.py"
+KERNELS = [  # (counter, name, Pallas kernel it replaces, model it is timed on)
+    ("bwd", "td_bwd", f"{PK}:350", "flagship"),
+    ("fwd", "td_fwd", f"{PK}:384", "flagship"),
+    ("tb", "td_tb", f"{PK}:535", "flagship"),
+    ("bwd_grouped", "td_bwd_grouped", f"{PK}:350", "plate"),
+    ("fwd_grouped", "td_fwd_grouped", f"{PK}:384", "plate"),
+    ("score", "td_bwd_score", f"{PK}:369", "flagship"),
+    ("score_grouped", "td_bwd_score_grouped", f"{PK}:369", "plate"),
 ]
+# reads of the 8-barcode run (5b)
+SMALL_READS = 200_000
 
 
 def fail(msg: str) -> None:
@@ -55,13 +74,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_model(max_len: int = 64):
+def library_model(barcodes, max_len: int = 64):
+    """``-1 B:<barcodes> -2 R:N`` (``-1 R:N`` without barcodes) with the
+    flagship's sequence stats."""
     from tagdust_tpu.arch import build_read_structure
     from tagdust_tpu.logsum import p2sp
     from tagdust_tpu.model import init_model_bag
     from tagdust_tpu.stats import SequenceStats
-
-    from tagdust_tpu_torch.flagship import load_barcodes
 
     ssi = SequenceStats()
     ssi.average_length = 50
@@ -69,8 +88,20 @@ def flagship_model(max_len: int = 64):
     ssi.background = [float(p2sp(p)) for p in (0.27, 0.24, 0.26, 0.22, 0.01)]
     ssi.mean_5_len = ssi.stdev_5_len = -1.0
     ssi.mean_3_len = ssi.stdev_3_len = -1.0
-    rs = build_read_structure([f"B:{','.join(load_barcodes())}", "R:N"])
+    rs = build_read_structure(
+        [f"B:{','.join(barcodes)}", "R:N"] if barcodes else ["R:N"])
     return init_model_bag(rs, ssi, 0.05, 0.1)
+
+
+def barcode_sets() -> dict:
+    from tagdust_tpu_torch.flagship import (
+        PLATE_PATH,
+        generate_barcodes,
+        load_barcodes,
+    )
+
+    return {"8": generate_barcodes(8, 6, 3), "flagship": load_barcodes(),
+            "48": generate_barcodes(48, 8, 3), "plate": load_barcodes(PLATE_PATH)}
 
 
 def timed(fn, reps: int = 5) -> float:
@@ -98,15 +129,24 @@ def close(a, b, atol, rtol) -> tuple:
     return float(d.max()), bool((d <= atol + rtol * b.abs()).all())
 
 
-def phase_kernels(seed: int, device: str = "cuda", B: int = 16384, Lp: int = 64):
-    """K1-K3 against the plain versions on identical inputs."""
+def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
+                  device: str = "cuda", B: int = 16384, Lp: int = 64) -> dict:
+    """K1-K4 of one step mode against the plain versions on identical
+    inputs (``full=False``: K4 only, with K1 for the bitwise check).
+    Returns {counter: {"ms", "plain_ms", "max_abs_err"}}."""
     import torch
 
     from tagdust_tpu_torch.engine import scan
-    from tagdust_tpu_torch.engine.cuda import CudaEngine
+    from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
+    from tagdust_tpu_torch.engine.tables import grouped_tables_from_lattice
 
-    eng = CudaEngine(flagship_model(), device)
-    sc = eng.scorer
+    g = grouped_tables_from_lattice(eng.mb, eng.lat) if grouped else None
+    if grouped and g is None:
+        fail("the lattice has no grouped form")
+    sc = FusedScorer(eng.tables, g).to(device)
+    gt = sc.grouped_tables()
+    sfx = "_grouped" if grouped else ""
+    tag = f"S={sc.S} {'grouped' if grouped else 'dense'}"
     rng = np.random.default_rng(seed)
     seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).to(device)
     lens = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).to(device)
@@ -115,9 +155,31 @@ def phase_kernels(seed: int, device: str = "cuda", B: int = 16384, Lp: int = 64)
         return sc.backward(seqs, lens)
 
     def p1():
-        return scan.backward_pass(seqs, lens, sc.Abwd, sc.end, sc.begin)
+        return scan.backward_pass(seqs, lens, sc.Abwd, sc.end, sc.begin, grouped=gt)
+
+    def k4():
+        return sc.score(seqs, lens)
+
+    def p4():
+        return scan.backward_scores(seqs, lens, sc.Abwd, sc.end, sc.begin, grouped=gt)
 
     bst, blst, logpb = k1()
+    score = k4()
+    pscore = p4()
+    e4, ok4 = close(score, pscore, 1e-4, 1e-5)
+    print(f"[{tag}] K4 logpb max|d|={e4:.3g} against its plain version; "
+          f"K4 == K1 bitwise: {bool(torch.equal(score, logpb))}", flush=True)
+    if not ok4:
+        fail("K4 logpb outside its tolerance")
+    if not torch.equal(score, logpb):
+        fail("K4 logpb differs from K1's")
+    res = {}
+    if device == "cuda":
+        res["score" + sfx] = {"ms": timed(k4), "plain_ms": timed(p4), "max_abs_err": e4}
+    if not full:
+        report(tag, res, B, Lp)
+        return res
+
     pbst, pblst, plogpb = p1()
 
     def k2():
@@ -126,7 +188,7 @@ def phase_kernels(seed: int, device: str = "cuda", B: int = 16384, Lp: int = 64)
     def p2():
         return scan.forward_decode(seqs, lens, sc.Afwd, sc.end, sc.Lmap,
                                    sc.ent_state, sc.tmat, sc.begin, bst, blst,
-                                   logpb)
+                                   logpb, grouped=gt)
 
     path, dpfin, flog, tp = k2()
     ppath, pdpfin, pflog, ptp = p2()
@@ -140,24 +202,23 @@ def phase_kernels(seed: int, device: str = "cuda", B: int = 16384, Lp: int = 64)
     labels = k3()
     plabels = p3()
 
-    res = {}
     e1, ok1 = close(logpb, plogpb, 1e-4, 1e-5)
     ef, okf = close(flog, pflog, 1e-4, 1e-5)
     et, okt = close(tp, ptp, 1e-6, 1e-4)
     ed, okd = close(dpfin, pdpfin, 1e-6, 1e-4)
-    print(f"K1 logpb max|d|={e1:.3g}  K2 f_log max|d|={ef:.3g} tp={et:.3g} "
-          f"dpfin={ed:.3g}", flush=True)
+    print(f"[{tag}] K1 logpb max|d|={e1:.3g}  K2 f_log max|d|={ef:.3g} "
+          f"tp={et:.3g} dpfin={ed:.3g}", flush=True)
     for name, ok in (("logpb", ok1), ("f_log", okf), ("tp", okt), ("dpfin", okd)):
         if not ok:
             fail(f"{name} outside its tolerance")
     # K3 on identical path/dpfin is exact
     n_tb = int((labels != plabels).any(dim=1).sum())
-    print(f"K3 reads whose labels differ from the plain traceback: {n_tb}")
+    print(f"[{tag}] K3 reads whose labels differ from the plain traceback: {n_tb}")
     if n_tb:
         fail("traceback kernel disagrees with its plain version")
 
     # whole chain, kernels vs plain versions end to end: labels at 1..len
-    # and Q (f32 sums over 255 states in another order across 64 rescaled
+    # and Q (f32 sums over S states in another order across 64 rescaled
     # steps; a near-tie in the label DP can flip a backpointer)
     chain = sc(seqs, lens)
     pchain_labels = scan.traceback(ppath, pdpfin)
@@ -167,11 +228,11 @@ def phase_kernels(seed: int, device: str = "cuda", B: int = 16384, Lp: int = 64)
     # plain chain from its own backward pass
     ppath2, pdp2, pflog2, ptp2 = scan.forward_decode(
         seqs, lens, sc.Afwd, sc.end, sc.Lmap, sc.ent_state, sc.tmat, sc.begin,
-        pbst, pblst, plogpb)
+        pbst, pblst, plogpb, grouped=gt)
     plab2 = scan.traceback(ppath2, pdp2)
     ndiff2 = int(((chain[2] != plab2) & valid).any(dim=1).sum())
-    print(f"labels differing at 1..len: {ndiff} (plain K2+K3 on the K1 stack), "
-          f"{ndiff2} (plain K1-K3) of {B}")
+    print(f"[{tag}] labels differing at 1..len: {ndiff} (plain K2+K3 on the K1 "
+          f"stack), {ndiff2} (plain K1-K3) of {B}")
     if max(ndiff, ndiff2) > B * 1e-4:
         fail("labels differ on more than 0.01% of reads")
     rlog = scan.random_log(seqs, lens, eng._bg_log, eng._avg_len)
@@ -181,25 +242,72 @@ def phase_kernels(seed: int, device: str = "cuda", B: int = 16384, Lp: int = 64)
     if not bool((torch.isfinite(q) == fin).all()):
         fail("Q finiteness differs")
     eq = float((q[fin] - pq[fin]).abs().max())
-    print(f"Q max|d| = {eq:.3g}")
+    print(f"[{tag}] Q max|d| = {eq:.3g}")
     if eq > 1e-2:
         fail("Q differs by more than 1e-2")
+    del pbst, pblst, ppath, ppath2
 
     if device == "cuda":
         for key, kfn, pfn, err in (("bwd", k1, p1, e1), ("fwd", k2, p2, ef),
                                    ("tb", k3, p3, float(n_tb))):
-            res[key] = {"ms": timed(kfn), "plain_ms": timed(pfn), "max_abs_err": err}
-        for key, r in res.items():
-            print(f"{key}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms "
-                  f"(B={B}, Lp={Lp})", flush=True)
+            res[key if key == "tb" else key + sfx] = {
+                "ms": timed(kfn), "plain_ms": timed(pfn), "max_abs_err": err}
+    report(tag, res, B, Lp)
     return res
+
+
+def report(tag: str, res: dict, B: int, Lp: int) -> None:
+    for key, r in res.items():
+        print(f"[{tag}] {key}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms "
+              f"(B={B}, Lp={Lp})", flush=True)
+
+
+def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
+    """Dense against grouped K1+K2 (median of 5, CUDA events) at each library
+    size, beside the FMA counts and the mode the gate picks."""
+    import torch
+
+    from tagdust_tpu_torch.engine.cuda import (
+        GROUPED_FMA_SHARE,
+        grouped_step_mode,
+        step_fmas,
+    )
+    from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
+    from tagdust_tpu_torch.engine.tables import grouped_tables_from_lattice
+
+    rng = np.random.default_rng(seed)
+    seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
+    lens = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).cuda()
+    print(f"gate (B={B}, Lp={Lp}, GROUPED_FMA_SHARE={GROUPED_FMA_SHARE}): "
+          "barcodes, S, K, spans, FMA share, dense K1+K2 ms, grouped K1+K2 ms, "
+          "gate picks", flush=True)
+    for name, eng in models.items():
+        g = grouped_tables_from_lattice(eng.mb, eng.lat)
+        ms = {}
+        for mode, gg in (("dense", None), ("grouped", g)):
+            sc = FusedScorer(eng.tables, gg).cuda()
+
+            def k12():
+                bst, blst, lp = sc.backward(seqs, lens)
+                sc.forward_decode(seqs, lens, bst, blst, lp)
+
+            ms[mode] = timed(k12)
+            del sc
+        dense, grouped = step_fmas(eng.lat.S, int(eng.tables["K"]), g["span"][:, 1],
+                                   g["uexit"].shape[0], g["urows"].shape[0])
+        pick = "grouped" if grouped_step_mode(eng.mb, eng.lat) is not None else "dense"
+        faster = "grouped" if ms["grouped"] < ms["dense"] else "dense"
+        print(f"gate {name}: S={eng.lat.S} K={int(eng.tables['K'])} "
+              f"spans={len(g['span'])} share={grouped / dense:.3f} "
+              f"dense={ms['dense']:.3f} ms grouped={ms['grouped']:.3f} ms "
+              f"picks {pick}, faster {faster}", flush=True)
 
 
 BARCODE_SUB = 0.05
 
 
 def write_fastq(path: str, n: int, seed: int, barcodes) -> np.ndarray:
-    """90% of reads: a flagship barcode (5% substitutions) then a random
+    """90% of reads: a barcode of the set (5% substitutions) then a random
     insert, 50-60nt in all; 10% random reads.  Returns the true barcode
     index of each read (-1 for random reads)."""
     rng = np.random.default_rng(seed)
@@ -254,82 +362,167 @@ def run_tagdust(args) -> float:
     return time.perf_counter() - t0
 
 
-def phase_main(seed: int, n_reads: int, tmp: str, engine: str = "cuda",
-               extra=()) -> dict:
+def run_path(name: str, args, expect) -> dict:
+    """Drive one main path through the CLI, with the launch counts set to 0
+    just before it and read just after; every kernel in ``expect`` must have
+    launched, and no plain version may have run on CUDA tensors."""
     from tagdust_tpu_torch import controller
     from tagdust_tpu_torch.engine import fused_kernel, runner, scan
-    from tagdust_tpu_torch.flagship import load_barcodes
 
-    bcs = load_barcodes()
-    fq = os.path.join(tmp, "in.fq")
-    t0 = time.perf_counter()
-    truth = write_fastq(fq, n_reads, seed, bcs)
-    print(f"generated {n_reads} reads in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    out = os.path.join(tmp, "out")
     for k in fused_kernel.LAUNCHES:
         fused_kernel.LAUNCHES[k] = 0
     scan.PLAIN_CUDA_CALLS["count"] = 0
     runner.STREAM_STATS["windows"] = 0
-    wall = run_tagdust(["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-o", out,
-                        "-engine", engine, *extra])
+    wall = run_tagdust(args)
     launches = dict(fused_kernel.LAUNCHES)
     windows = runner.STREAM_STATS["windows"]
     plain = scan.PLAIN_CUDA_CALLS["count"]
     cal = controller.TIMINGS["calibration"]
-    print(f"main path: {n_reads} reads in {wall:.2f} s wall "
-          f"({n_reads / wall:.0f} reads/s), calibration {cal:.2f} s; "
-          f"launches {launches}, streaming windows {windows}, "
-          f"plain-on-CUDA calls {plain}", flush=True)
-    if engine == "cuda" and min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+    det = controller.TIMINGS["detection"]
+    print(f"[{name}] {wall:.2f} s wall, detection {det:.2f} s, calibration "
+          f"{cal:.2f} s; launches "
+          f"{launches}, streaming windows {windows}, plain-on-CUDA calls {plain}",
+          flush=True)
+    missing = [k for k in expect if launches[k] <= 0]
+    if missing:
+        fail(f"{name}: kernels of the path never launched: {missing}")
     if windows < 3:
-        fail(f"only {windows} streaming windows")
+        fail(f"{name}: only {windows} streaming windows")
     if plain:
-        fail(f"plain versions ran {plain} times on CUDA tensors")
-    got = outcomes(out, bcs, n_reads)
+        fail(f"{name}: plain versions ran {plain} times on CUDA tensors")
+    return {"wall_s": wall, "detection_s": det, "calibration_s": cal,
+            "launches": launches}
+
+
+def check_output(name: str, out: str, bcs, truth) -> None:
+    """Every read written; barcode precision >= 0.99 over the reads
+    generated with a barcode."""
+    got = outcomes(out, bcs, truth.shape[0])
     if (got == -2).any():
-        fail(f"{int((got == -2).sum())} reads missing from the output")
-    # precision over the reads generated with a barcode; a random read that
-    # happens to begin within an edit or two of a barcode is as barcoded as
-    # any read can be, and is reported apart
+        fail(f"{name}: {int((got == -2).sum())} reads missing from the output")
+    # a random read that happens to begin within an edit or two of a
+    # barcode is as barcoded as any read can be, and is reported apart
     assigned = got >= 0
     bar = truth >= 0
     correct = assigned & (got == truth)
     precision = correct.sum() / max((assigned & bar).sum(), 1)
     recall = correct.sum() / max(bar.sum(), 1)
     rnd = assigned & ~bar
-    print(f"barcode precision {precision:.5f}, recall {recall:.5f} "
+    print(f"[{name}] barcode precision {precision:.5f}, recall {recall:.5f} "
           f"({int(assigned.sum())} reads assigned; {int(rnd.sum())} of "
           f"{int((~bar).sum())} random reads assigned to a barcode)", flush=True)
     if precision < 0.99:
-        fail(f"barcode precision {precision:.4f} < 0.99")
-    return {"fq": fq, "truth": truth, "wall_s": wall, "calibration_s": cal,
-            "launches": launches}
+        fail(f"{name}: barcode precision {precision:.4f} < 0.99")
 
 
-def phase_cross(fq: str, tmp: str, n: int = 20000, engine: str = "cuda") -> None:
-    from tagdust_tpu_torch.flagship import load_barcodes
+def mode_suffix(bcs) -> str:
+    """The counter suffix of the step mode the gate picks for ``bcs``."""
+    from tagdust_tpu.engine.lattice import compile_lattice
 
-    bcs = load_barcodes()
-    head = os.path.join(tmp, "head.fq")
-    with open(fq, "rb") as src, open(head, "wb") as dst:
+    from tagdust_tpu_torch.engine.cuda import grouped_step_mode
+
+    mb = library_model(bcs)
+    return "_grouped" if grouped_step_mode(mb, compile_lattice(mb)) is not None else ""
+
+
+def path_kernels(bcs) -> list:
+    """The counters of the kernels a demultiplex of ``bcs`` runs: K1 and K2
+    in the step mode the gate picks, and K3."""
+    sfx = mode_suffix(bcs)
+    return ["bwd" + sfx, "fwd" + sfx, "tb"]
+
+
+def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str) -> dict:
+    """A default-flag ``tagdust -1 B:<bcs> -2 R:N -engine cuda`` run."""
+    fq = os.path.join(tmp, f"{name}.fq")
+    t0 = time.perf_counter()
+    truth = write_fastq(fq, n_reads, seed, bcs)
+    print(f"[{name}] generated {n_reads} reads in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out = os.path.join(tmp, f"{name}_out")
+    res = run_path(name, ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-o", out,
+                          "-engine", "cuda"], path_kernels(bcs))
+    print(f"[{name}] {n_reads / res['wall_s']:.0f} reads/s", flush=True)
+    check_output(name, out, bcs, truth)
+    return dict(res, fq=fq)
+
+
+def write_candidates(tmp: str, sets: dict) -> str:
+    path = os.path.join(tmp, "candidates.txt")
+    with open(path, "w") as fh:
+        for name in ("flagship", "plate"):
+            fh.write(f"tagdust -1 B:{','.join(sets[name])} -2 R:N\n")
+        fh.write("tagdust -1 R:N\n")
+    return path
+
+
+def brief(lines) -> list:
+    return [ln if len(ln) < 64 else f"{ln[:60]}..." for ln in lines]
+
+
+def detection_lines(prefix: str) -> list:
+    """The "Using:" and confidence lines of a run's log, without stamps."""
+    with open(f"{prefix}_logfile.txt") as fh:
+        return [ln.split("\t", 1)[-1].strip() for ln in fh
+                if "Using:" in ln or "Confidence" in ln]
+
+
+def phase_arch(sets: dict, seed: int, n_reads: int, tmp: str) -> dict:
+    """``tagdust -arch`` over a 96-plex FASTQ: detection (K4) then the
+    plate's demultiplex; the plate must win."""
+    bcs = sets["plate"]
+    fq = os.path.join(tmp, "plate.fq")
+    t0 = time.perf_counter()
+    truth = write_fastq(fq, n_reads, seed + 1, bcs)
+    print(f"[arch] generated {n_reads} reads in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cands = write_candidates(tmp, sets)
+    out = os.path.join(tmp, "arch_out")
+    # K4 of each candidate in its step mode, then the plate's K1-K3
+    expect = {"score" + mode_suffix(b) for b in (sets["flagship"], bcs, [])}
+    res = run_path("arch", ["-arch", cands, fq, "-o", out, "-engine", "cuda"],
+                   sorted(expect) + path_kernels(bcs))
+    lines = detection_lines(out)
+    print(f"[arch] detection: {brief(lines)}; {n_reads / res['wall_s']:.0f} reads/s",
+          flush=True)
+    if not lines or f"B:{','.join(bcs)}" not in lines[0]:
+        fail(f"arch: the 96-plex candidate did not win: {brief(lines)}")
+    check_output("arch", out, bcs, truth)
+    return dict(res, fq=fq, cands=cands, detection=lines)
+
+
+def head_fastq(fq: str, path: str, n: int) -> str:
+    with open(fq, "rb") as src, open(path, "wb") as dst:
         for k, line in enumerate(src):
             if k >= 4 * n:
                 break
             dst.write(line)
-    res = {}
-    for eng in (engine, "exact"):
-        prefix = os.path.join(tmp, f"x_{eng}")
-        t = run_tagdust(["-1", f"B:{','.join(bcs)}", "-2", "R:N", head, "-o",
-                         prefix, "-Q", "20", "-engine", eng])
+    return path
+
+
+def phase_cross(name: str, fq: str, tmp: str, arch_args, bcs,
+                n: int = 20000) -> None:
+    """The first ``n`` reads at ``-Q 20`` on ``-engine cuda`` and
+    ``-engine exact``: per-read outcomes agree on >= 99.9%, and any
+    ``-arch`` detection picks the same winner with the same confidence."""
+    head = head_fastq(fq, os.path.join(tmp, f"{name}_head.fq"), n)
+    from tagdust_tpu_torch import controller
+
+    res, det = {}, {}
+    for eng in ("cuda", "exact"):
+        prefix = os.path.join(tmp, f"{name}_x_{eng}")
+        t = run_tagdust([*arch_args, head, "-o", prefix, "-Q", "20", "-engine", eng])
         res[eng] = outcomes(prefix, bcs, n)
-        print(f"cross-check {eng}: {t:.2f} s", flush=True)
-    dis = int((res[engine] != res["exact"]).sum())
-    print(f"cross-check: {dis} of {n} reads disagree with the exact engine",
-          flush=True)
+        det[eng] = detection_lines(prefix)
+        print(f"[{name}] cross-check {eng}: {t:.2f} s wall, detection "
+              f"{controller.TIMINGS['detection']:.2f} s {brief(det[eng])}", flush=True)
+    dis = int((res["cuda"] != res["exact"]).sum())
+    print(f"[{name}] cross-check: {dis} of {n} reads disagree with the exact "
+          "engine", flush=True)
     if dis > n * 1e-3:
-        fail("device and exact engine disagree on more than 0.1% of reads")
+        fail(f"{name}: device and exact engine disagree on more than 0.1% of reads")
+    if det["cuda"] != det["exact"]:
+        fail(f"{name}: detection differs from the exact engine")
 
 
 def main() -> int:
@@ -343,6 +536,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from tagdust_tpu_torch.engine import build
+    from tagdust_tpu_torch.engine.cuda import CudaEngine
 
     card = card_line()
     print(f"card: {card}")
@@ -362,21 +556,44 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.init()
 
-    kres = phase_kernels(args.seed)
+    sets = barcode_sets()
+    models = {name: CudaEngine(library_model(b), "cuda") for name, b in sets.items()}
+    timing = {}  # (counter, model) -> measurements
+    for name, grouped, full in (("flagship", False, True), ("flagship", True, True),
+                                ("plate", True, True), ("plate", False, False)):
+        for key, r in phase_kernels(models[name], grouped, args.seed, full).items():
+            timing[key, name] = r
     print(f"kernel times above on: {card}", flush=True)
+    phase_gate(models, args.seed)
+    print(f"gate times above on: {card}", flush=True)
+    del models
+    torch.cuda.empty_cache()
+
+    launches = {k: 0 for k, *_ in KERNELS}
     tmp = tempfile.mkdtemp(prefix="tagdust_smoke_")
     try:
-        m = phase_main(args.seed, args.reads, tmp)
+        m = phase_main("flagship", sets["flagship"], args.seed, args.reads, tmp)
+        small = phase_main("8-plex", sets["8"], args.seed, SMALL_READS, tmp)
+        arch = phase_arch(sets, args.seed, args.reads, tmp)
+        for r in (m, small, arch):
+            for k in launches:
+                launches[k] += r["launches"][k]
         print(f"main path times above on: {card}", flush=True)
-        phase_cross(m["fq"], tmp)
+        flag_args = ["-1", f"B:{','.join(sets['flagship'])}", "-2", "R:N"]
+        phase_cross("flagship", m["fq"], tmp, flag_args, sets["flagship"])
+        phase_cross("arch", arch["fq"], tmp, ["-arch", arch["cands"]],
+                    sets["plate"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    if min(launches.values()) <= 0:
+        fail(f"a kernel launched on no main path: {launches}")
 
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
-         "launches": m["launches"][key], "max_abs_err": kres[key]["max_abs_err"],
-         "ms": kres[key]["ms"], "plain_ms": kres[key]["plain_ms"]}
-        for key, name, rep in KERNELS
+         "launches": launches[key],
+         "max_abs_err": timing[key, model]["max_abs_err"],
+         "ms": timing[key, model]["ms"], "plain_ms": timing[key, model]["plain_ms"]}
+        for key, name, rep, model in KERNELS
     ]}
     print(card_line())
     print(json.dumps(rec))

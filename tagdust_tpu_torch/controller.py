@@ -7,9 +7,9 @@ refusal, stats + threshold calibration + model build, the pipelined chunk
 loop with cross-file checks, outcome merging, writing and the end-of-run
 summary), with three changes:
 
-1. ``param.engine`` is resolved to a concrete kind first, so the shared
-   ``-arch`` detection never reaches the JAX engine choice (it scores on the
-   exact engine until the score-only kernel is ported);
+1. ``param.engine`` is resolved to a concrete kind first, and ``-arch``
+   detection runs the port's ``detect.test_architectures``, which scores
+   the candidates on that engine (K4 on the card for ``-engine cuda``);
 2. ``-multihost`` raises ``NotImplementedError`` (not ported yet);
 3. the artifact filter (``-ref``) runs the host Myers path.
 """
@@ -41,7 +41,6 @@ from tagdust_tpu.constants import (
     EXTRACT_FAIL_READ_TOO_SHORT,
     EXTRACT_SUCCESS,
 )
-from tagdust_tpu.detect import test_architectures
 from tagdust_tpu.engine.runner import run_rna_dust_batch
 from tagdust_tpu.io.fastq import SeqReader, read_fasta_contaminants
 from tagdust_tpu.io.writer import DemuxWriter, existing_output_files
@@ -49,6 +48,7 @@ from tagdust_tpu.model import init_model_bag
 from tagdust_tpu.namecheck import compare_read_names
 from tagdust_tpu.stats import get_sequence_stats
 
+from .detect import test_architectures
 from .engine.runner import resolve_engine, run_get_label_batch, run_get_prob
 
 
@@ -70,15 +70,15 @@ class MessageLog:
                 fh.write("".join(self.messages) + "\n")
 
 
-# wall seconds of the last run's stats + threshold calibration phase
-TIMINGS = {"calibration": None}
+# wall seconds of the last run's -arch detection and its stats + threshold
+# calibration phase
+TIMINGS = {"detection": 0.0, "calibration": None}
 
 
 def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
     log = log or MessageLog()
     nfiles = param.infiles
-    # concrete engine kind before anything reads it (detect.py would
-    # otherwise resolve "auto" through the JAX runner)
+    # concrete engine kind before anything reads it
     param.engine = resolve_engine(param)
     if getattr(param, "multihost", False):
         raise NotImplementedError(
@@ -87,11 +87,14 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
 
     cli_rs = read_structure_from_params(param.segments)
     read_structures: List[ReadStructure] = []
+    TIMINGS["detection"] = 0.0
     for i in range(nfiles):
         if i == 0 and cli_rs.num_segments:
             rs = cli_rs
         elif param.arch_file:
+            t_det = time.perf_counter()
             rs = test_architectures(param, i, log=log)
+            TIMINGS["detection"] += time.perf_counter() - t_det
         else:
             rs = build_read_structure(["R:N"])
             qc_read_structure(rs)

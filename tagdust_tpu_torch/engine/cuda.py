@@ -8,10 +8,13 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
   scoring epilogue (r_log, bar_prob, Q), sub-batched under a stack budget;
 * ``dispatch_decided`` — the streaming decided mode (rows parsed by
   ``decided.collect_decided``):
-  labels stay on the device, the host receives Lp/8+25 bytes per read.
+  labels stay on the device, the host receives Lp/8+25 bytes per read;
+* ``backward_scores``  — logP_b only, for architecture detection (K4).
 
 The engine runs on ``device``: ``cuda`` launches the hand-written kernels,
-``cpu`` runs the same pipeline through the plain versions.
+``cpu`` runs the same pipeline through the plain versions.  The kernels run
+in the grouped (block-banded) step mode where the gate
+``grouped_step_mode`` picks it, else in the dense one.
 """
 
 from __future__ import annotations
@@ -29,7 +32,54 @@ from tagdust_tpu.model import ModelBag
 from . import decided as D
 from . import scan
 from .fused_kernel import FusedScorer
-from .tables import tables_from_lattice
+from .tables import grouped_tables_from_lattice, tables_from_lattice
+
+# The grouped step mode engages when its FMAs per read and position (K1 +
+# K2) are at most this share of the dense mode's.  Set from the dense and
+# grouped K1+K2 times at 8, 20, 48 and 96 barcodes on the H100 (PERF.md): a
+# grouped FMA cost 1.2x to 1.6x a dense one there, so grouped wins below a
+# share of 0.61-0.85; 0.6 stays below all four.
+GROUPED_FMA_SHARE = 0.6
+
+
+def step_fmas(S: int, K: int, widths, nm: int, NU: int) -> tuple:
+    """(dense, grouped) FMAs per read and position of K1 + K2: the dense
+    products over S (and the K entry columns), against the span blocks,
+    the silent-exit flows (2*nm*S per kernel) and the entry columns from
+    the NU non-zero rows of Uent."""
+    dense = S * S + S * (S + K)
+    blocks = sum(w * w for w in widths)
+    return dense, 2 * blocks + 4 * nm * S + NU * K
+
+
+def grouped_step_mode(mb: ModelBag, lat):
+    """The grouped tables of ``mb`` when the grouped step mode is engaged,
+    else None: the counterpart of ``TpuEngine._grouped_decomposition``
+    (tpu.py:508-529), with the gate measured on the H100
+    (``GROUPED_FMA_SHARE``).  TAGDUST_TPU_GROUPED=0/1 forces dense /
+    grouped.  A lattice without a grouped form (a chain wider than 128
+    states, or more than 128 segments) takes the dense mode loudly when
+    grouped was asked for or the lattice spans more than 128 states."""
+    mode = os.environ.get("TAGDUST_TPU_GROUPED", "auto")
+    if mode == "0":
+        return None
+    g = grouped_tables_from_lattice(mb, lat)
+    if g is None:
+        if mode == "1" or lat.S > 128:
+            from tagdust_tpu.strict import fallback
+
+            fallback(
+                "grouped-step-kernel",
+                ValueError(f"no block-banded form of the {lat.S}-state lattice"),
+                "a chain wider than 128 states or more than 128 segments; "
+                "scoring on the dense step kernels (quadratic in S)",
+            )
+        return None
+    if mode == "1":
+        return g
+    dense, grouped = step_fmas(lat.S, lat.Aent.shape[2], g["span"][:, 1],
+                               g["uexit"].shape[0], g["urows"].shape[0])
+    return g if grouped <= GROUPED_FMA_SHARE * dense else None
 
 
 @dataclass
@@ -53,7 +103,8 @@ class CudaEngine:
         self.device = torch.device(device)
         self.lat = compile_lattice(mb)
         self.tables = tables_from_lattice(mb, self.lat)
-        self.scorer = FusedScorer(self.tables).to(self.device)
+        self.grouped = grouped_step_mode(mb, self.lat)
+        self.scorer = FusedScorer(self.tables, self.grouped).to(self.device)
         t = lambda x: torch.as_tensor(x).to(self.device)  # noqa: E731
         self._bg_log = torch.log(t(self.tables["bg"]))
         self._avg_len = t(self.tables["avg_len"])
@@ -72,6 +123,9 @@ class CudaEngine:
         return max(int(bt) // 8 * 8, 8) if bt else 256
 
     def stack_bytes_per_read(self, Lp: int) -> int:
+        """Bytes of K1's stack per read, (Lp+1) * (S+1) * 4.  The stack is
+        S states wide in both step modes: the grouped mode keeps the
+        original state order, without the TPU's 128-lane span padding."""
         return (Lp + 1) * (self.lat.S + 1) * 4
 
     def required_finger_len(self) -> int:
@@ -178,6 +232,16 @@ class CudaEngine:
             else torch.cat([p[i] for p in parts]).numpy()[:B]
         )
         return BatchResult(cat(0), cat(1), cat(2), cat(3), cat(4))
+
+    def backward_scores(self, seqs: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """[B] backward-only log P(x|M) for architecture detection
+        (tpu.py:393-474): one K4 launch, no stack.  Pads to the batch
+        granularity with copies of read 0."""
+        B = seqs.shape[0]
+        seqs, lens = self._pad(seqs, lens, self.default_batch_tile())
+        out = self.scorer.score(self._upload(seqs.astype(np.uint8)),
+                                self._upload(lens.astype(np.int32)))
+        return out.cpu().numpy()[:B]
 
     def dispatch_decided(self, seqs: np.ndarray, lens: np.ndarray, thr32,
                          minlen: int) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""``FusedScorer``: the three DP kernels behind one module.
+"""``FusedScorer``: the four DP kernels behind one module.
 
 The counterpart of ``tagdust_tpu/engine/pallas_kernel.py:make_fused_scorer``
-in dense step mode.  The tables are buffers, so ``.to(device)`` moves them.
-For CUDA tensors each stage launches its hand-written kernel
-(``csrc/fused_dp.cu``) and raises if the launch fails; for CPU tensors it
-runs the plain PyTorch version of ``engine/scan.py``.  Nothing falls back
-from the card to the plain version.
+in both step modes: dense, or grouped (block-banded) when it is given the
+tables of ``tables.grouped_tables``.  The tables are buffers, so
+``.to(device)`` moves them.  For CUDA tensors each stage launches its
+hand-written kernel (``csrc/fused_dp.cu``) and raises if the launch fails;
+for CPU tensors it runs the plain PyTorch version of ``engine/scan.py`` in
+the same mode.  Nothing falls back from the card to the plain version or
+from one mode to the other.
 
-``LAUNCHES`` counts kernel launches per kernel, so a run can show that its
-main path went through the kernels.
+``LAUNCHES`` counts kernel launches per kernel and mode, so a run can show
+that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -19,21 +21,28 @@ from torch import nn
 
 from . import scan
 
-LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0}
+LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0, "bwd_grouped": 0, "fwd_grouped": 0,
+            "score": 0, "score_grouped": 0}
 
 _TABLES = ("Afwd", "Abwd", "Af", "Ab", "end", "Lmap", "lab_ptr", "lab_idx",
            "ent_state", "tmat")
+_GROUPED = ("span", "tile_f", "tile_b", "span_of", "uexit", "wvec", "seg",
+            "urows", "uent", "eent")
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _buffer(module: nn.Module, name: str, x) -> None:
+    module.register_buffer(name, torch.from_numpy(np.ascontiguousarray(x)))
+
+
 class FusedScorer(nn.Module):
     """fn(seqs [B, Lp] uint8, lens [B] int32) ->
     (f_log [B], logP_b [B], labels [B, Lp+1] int32, tp [B, K])."""
 
-    def __init__(self, tables: dict):
+    def __init__(self, tables: dict, grouped: dict = None):
         super().__init__()
         self.S = int(tables["S"])
         self.K = int(tables["K"])
@@ -41,10 +50,24 @@ class FusedScorer(nn.Module):
         self.Sr = int(tables["Ab"].shape[1])
         self.begin = int(tables["begin"])
         for name in _TABLES:
-            self.register_buffer(
-                name, torch.from_numpy(np.ascontiguousarray(tables[name]))
-            )
-        self._rt = None
+            _buffer(self, name, tables[name])
+        self.grouped = grouped is not None
+        self.nm = self.NU = 0
+        if self.grouped:
+            for name in _GROUPED:
+                _buffer(self, "g_" + name, grouped[name])
+            self.nm = int(grouped["uexit"].shape[0])
+            self.NU = int(grouped["urows"].shape[0])
+        self._rt = {}
+
+    def grouped_tables(self) -> dict:
+        """The grouped tables as tensors (the plain versions' argument)."""
+        if not self.grouped:
+            return None
+        return {name: getattr(self, "g_" + name) for name in _GROUPED}
+
+    def _key(self, name: str) -> str:
+        return name + "_grouped" if self.grouped else name
 
     # ---------------- checks and launch geometry ----------------
     def _check(self, **tensors) -> None:
@@ -58,43 +81,85 @@ class FusedScorer(nn.Module):
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
 
-    def reads_per_block(self) -> int:
-        if self._rt is None:
+    def _check_batch(self, seqs, lens) -> None:
+        self._check(seqs=seqs, lens=lens)
+        if lens.shape != (seqs.shape[0],):
+            raise ValueError(
+                f"lens shape {tuple(lens.shape)} != ({seqs.shape[0]},)"
+            )
+
+    def reads_per_block(self, kernel: str) -> int:
+        """Reads per block of ``kernel`` ("bwd" for K1 and K4, "fwd")."""
+        if kernel not in self._rt:
             from .build import lib
 
-            rt = lib().td_reads_per_block(self.S, self.Sr, self.K, self.H)
+            fwd = kernel == "fwd"
+            Yr = self.Sr if self.grouped else (self.S + self.K + 3) // 4 * 4
+            rt = lib().td_reads_per_block(int(fwd), self.Sr, Yr, max(self.K, 1),
+                                          self.H, self.nm)
             if rt <= 0:
                 raise RuntimeError(
                     f"lattice of {self.S} states does not fit one block's "
                     "shared memory"
                 )
-            self._rt = rt
-        return self._rt
+            self._rt[kernel] = rt
+        return self._rt[kernel]
+
+    def _step_args(self, fwd: bool) -> list:
+        """Step matrix, then the grouped-step table pointers (0 if dense)."""
+        if not self.grouped:
+            return [(self.Af if fwd else self.Ab).data_ptr()] + [None] * 5
+        tile = self.g_tile_f if fwd else self.g_tile_b
+        return [tile.data_ptr()] + [
+            getattr(self, "g_" + n).data_ptr()
+            for n in ("span", "span_of", "uexit", "wvec", "seg")
+        ]
 
     # ---------------- K1 ----------------
     def backward(self, seqs: torch.Tensor, lens: torch.Tensor):
         """-> (bstack [Lp+1, B, S], blstack [Lp+1, B], logpb [B])."""
         if not seqs.is_cuda:
-            return scan.backward_pass(seqs, lens, self.Abwd, self.end, self.begin)
+            return scan.backward_pass(seqs, lens, self.Abwd, self.end, self.begin,
+                                      grouped=self.grouped_tables())
         from .build import check, lib
 
-        self._check(seqs=seqs, lens=lens)
+        self._check_batch(seqs, lens)
         B, Lp = seqs.shape
-        if lens.shape != (B,):
-            raise ValueError(f"lens shape {tuple(lens.shape)} != ({B},)")
         dev = seqs.device
         bstack = torch.empty((Lp + 1, B, self.S), dtype=torch.float32, device=dev)
         blstack = torch.empty((Lp + 1, B), dtype=torch.float32, device=dev)
         logpb = torch.empty(B, dtype=torch.float32, device=dev)
-        ptrs = [t.data_ptr() for t in
-                (seqs, lens, self.Ab, self.end, bstack, blstack, logpb)]
+        m, *g = self._step_args(fwd=False)
         err = lib().td_bwd(
-            *ptrs, B, Lp, self.S, self.Sr, self.begin, self.reads_per_block(),
-            _stream(),
+            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
+            bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
+            B, Lp, self.S, self.Sr, self.begin, self.nm, int(self.grouped),
+            self.reads_per_block("bwd"), _stream(),
         )
         check(err, "td_bwd")
-        LAUNCHES["bwd"] += 1
+        LAUNCHES[self._key("bwd")] += 1
         return bstack, blstack, logpb
+
+    # ---------------- K4 ----------------
+    def score(self, seqs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """logP_b [B] of K1 without the stack (architecture detection)."""
+        if not seqs.is_cuda:
+            return scan.backward_scores(seqs, lens, self.Abwd, self.end, self.begin,
+                                        grouped=self.grouped_tables())
+        from .build import check, lib
+
+        self._check_batch(seqs, lens)
+        B, Lp = seqs.shape
+        logpb = torch.empty(B, dtype=torch.float32, device=seqs.device)
+        m, *g = self._step_args(fwd=False)
+        err = lib().td_bwd_score(
+            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
+            logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin, self.nm,
+            int(self.grouped), self.reads_per_block("bwd"), _stream(),
+        )
+        check(err, "td_bwd_score")
+        LAUNCHES[self._key("score")] += 1
+        return logpb
 
     # ---------------- K2 ----------------
     def forward_decode(self, seqs, lens, bstack, blstack, logpb):
@@ -103,15 +168,16 @@ class FusedScorer(nn.Module):
             return scan.forward_decode(
                 seqs, lens, self.Afwd, self.end, self.Lmap, self.ent_state,
                 self.tmat, self.begin, bstack, blstack, logpb,
+                grouped=self.grouped_tables(),
             )
         from .build import check, lib
 
-        self._check(seqs=seqs, lens=lens, bstack=bstack, blstack=blstack,
-                    logpb=logpb)
+        self._check_batch(seqs, lens)
+        self._check(bstack=bstack, blstack=blstack, logpb=logpb)
         B, Lp = seqs.shape
         if (tuple(bstack.shape) != (Lp + 1, B, self.S)
                 or tuple(blstack.shape) != (Lp + 1, B)
-                or tuple(logpb.shape) != (B,) or tuple(lens.shape) != (B,)):
+                or tuple(logpb.shape) != (B,)):
             raise ValueError("stack shapes do not match the batch")
         for name, t in (("bstack", bstack), ("blstack", blstack), ("logpb", logpb)):
             if t.dtype != torch.float32:
@@ -122,16 +188,21 @@ class FusedScorer(nn.Module):
         dpfin = torch.empty((B, self.H), dtype=torch.float32, device=dev)
         flog = torch.empty(B, dtype=torch.float32, device=dev)
         tp = torch.empty((B, self.K), dtype=torch.float32, device=dev)
-        ptrs = [t.data_ptr() for t in
-                (seqs, lens, self.Af, self.end, self.lab_ptr, self.lab_idx,
-                 self.ent_state, self.tmat, bstack, blstack, logpb, path, dpfin,
-                 flog, tp)]
+        m, *g = self._step_args(fwd=True)
+        entry = ([self.g_urows.data_ptr(), self.g_uent.data_ptr(),
+                  self.g_eent.data_ptr()] if self.grouped else [None] * 3)
         err = lib().td_fwd(
-            *ptrs, B, Lp, self.S, self.Sr, self.K, self.H, self.begin,
-            path.element_size(), self.reads_per_block(), _stream(),
+            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
+            self.lab_ptr.data_ptr(), self.lab_idx.data_ptr(),
+            self.ent_state.data_ptr(), self.tmat.data_ptr(), *entry,
+            bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
+            path.data_ptr(), dpfin.data_ptr(), flog.data_ptr(), tp.data_ptr(),
+            B, Lp, self.S, self.Sr, self.K, self.H, self.begin, self.nm, self.NU,
+            int(self.grouped), path.element_size(), self.reads_per_block("fwd"),
+            _stream(),
         )
         check(err, "td_fwd")
-        LAUNCHES["fwd"] += 1
+        LAUNCHES[self._key("fwd")] += 1
         return path, dpfin, flog, tp
 
     # ---------------- K3 ----------------

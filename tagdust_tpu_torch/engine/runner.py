@@ -53,12 +53,13 @@ def resolve_engine(param) -> str:
 
 
 def get_engine(mb: ModelBag, kind: str):
-    """Engines are cached by model content, so calibration and production
-    (and back-to-back runs) share one set of device tables."""
+    """Engines are cached by model content and step-mode switch, so
+    calibration and production (and back-to-back runs) share one set of
+    device tables."""
     dig = getattr(mb, "_digest_cache", None)
     if dig is None:
         dig = mb._digest_cache = mb.digest()
-    key = (dig, kind)
+    key = (dig, kind, os.environ.get("TAGDUST_TPU_GROUPED", "auto"))
     if key not in _ENGINE_CACHE:
         if kind in DEVICE_KINDS:
             from .cuda import CudaEngine

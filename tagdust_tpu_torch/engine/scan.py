@@ -1,20 +1,27 @@
-"""Plain PyTorch versions of the three DP kernels, and the scan epilogue.
+"""Plain PyTorch versions of the four DP kernels, and the scan epilogue.
 
 These transliterate the XLA scan engine of ``tagdust_tpu/engine/tpu.py``
 (``backward_scan``, the ``fwd_step`` and traceback of ``_forward_backward``,
-``_q_from_scores``, ``bar_fn`` and the r_log of the random model) with the
-layout of the hand-written kernels at their wrapper boundary:
+``_backward_scores``, ``_q_from_scores``, ``bar_fn`` and the r_log of the
+random model) with the layout of the hand-written kernels at their wrapper
+boundary:
 
-* ``backward_pass``  (K1) -> stack [Lp+1, B, S], log-scale stack [Lp+1, B],
+* ``backward_pass``   (K1) -> stack [Lp+1, B, S], log-scale stack [Lp+1, B],
   logP_b [B].  Slot ``i`` holds the carry after positions ``i..Lp-1``;
-* ``forward_decode`` (K2) -> path [Lp, B, H] (int8 when H <= 127),
+* ``backward_scores`` (K4) -> logP_b [B]: K1 without the stack;
+* ``forward_decode``  (K2) -> path [Lp, B, H] (int8 when H <= 127),
   dpfin [B, H], f_log [B], tp [B, K];
-* ``traceback``      (K3) -> labels [B, Lp+1] int32, slot 0 = 0.
+* ``traceback``       (K3) -> labels [B, Lp+1] int32, slot 0 = 0.
 
 The CPU tests use them, ``FusedScorer`` runs them for CPU tensors, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.  A step is
-one dense product over the one-hot expansion of the carry
-(``[B, 5S] @ [5S, S(+K)]``), exactly as the JAX scan engine computes it.
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
+
+A step has two forms.  Dense: one product over the one-hot expansion of
+the carry (``[B, 5S] @ [5S, S(+K)]``), exactly as the JAX scan engine
+computes it.  Grouped (``grouped=``, the tables of
+``tables.grouped_tables``; K5, ``pallas_kernel.py:256-304``): a product per
+span of the block diagonal, plus the silent-exit flows, and the entry
+columns through ``(v[:, urows] @ Uent[urows]) * Eent[base]``.
 All products run in full float32: TF32 is switched off in each call.
 """
 
@@ -57,39 +64,97 @@ def path_dtype(H: int) -> torch.dtype:
     return torch.int8 if H <= 127 else torch.int32
 
 
-def backward_pass(seqs, lens, Abwd, end, begin: int):
-    """K1: the rescaled backward recurrence with its stack spill."""
+def _dense_step(M):
+    return lambda x, oh: _expand(x, oh) @ M
+
+
+def _grouped_step(g: dict, fwd: bool):
+    """The grouped step ``x -> x @ A[base]`` (fwd) or ``x @ A[base]^T``:
+    block products over the spans, then the rank-nm silent-exit flow
+    ``((x @ Uexit)[:, seg] * wvec[base])`` or its transpose
+    ``((x * wvec[base]) @ Mseg) @ Uexit^T``."""
+    spans = g["span"].tolist()
+    tile = g["tile_f"] if fwd else g["tile_b"]
+    uexit = g["uexit"]  # [nm, S]
+    seg = g["seg"].long()
+    mseg = torch.nn.functional.one_hot(seg, uexit.shape[0]).to(torch.float32)
+
+    def step(x, oh):
+        out = torch.empty_like(x)
+        for s0, w, off in spans:
+            blk = tile[off : off + 5 * w * w].view(5 * w, w)
+            out[:, s0 : s0 + w] = _expand(x[:, s0 : s0 + w], oh) @ blk
+        wsel = oh @ g["wvec"]
+        if fwd:
+            return out + (x @ uexit.T)[:, seg] * wsel
+        return out + ((x * wsel) @ mseg) @ uexit
+
+    return step
+
+
+def _backward(seqs, lens, step, end, begin: int, spill: bool):
     _enter(seqs)
     B, Lp = seqs.shape
     S = end.shape[0]
     oh = _onehot(seqs)
     b = end[None, :].expand(B, S).clone()
     bls = torch.zeros(B, dtype=torch.float32, device=seqs.device)
-    bstack = torch.empty((Lp + 1, B, S), dtype=torch.float32, device=seqs.device)
-    blstack = torch.empty((Lp + 1, B), dtype=torch.float32, device=seqs.device)
+    bstack = blstack = None
+    if spill:
+        bstack = torch.empty((Lp + 1, B, S), dtype=torch.float32, device=seqs.device)
+        blstack = torch.empty((Lp + 1, B), dtype=torch.float32, device=seqs.device)
     for p in range(Lp - 1, -1, -1):
-        bstack[p + 1] = b
-        blstack[p + 1] = bls
-        bn, lm = _rescale(_expand(b, oh[:, p]) @ Abwd)
+        if spill:
+            bstack[p + 1] = b
+            blstack[p + 1] = bls
+        bn, lm = _rescale(step(b, oh[:, p]))
         act = p < lens
         b = torch.where(act[:, None], bn, b)
         bls = torch.where(act, bls + lm, bls)
-    bstack[0] = b
-    blstack[0] = bls
+    if spill:
+        bstack[0] = b
+        blstack[0] = bls
     logpb = torch.log(torch.clamp_min(b[:, begin], 1e-38)) + bls
     return bstack, blstack, logpb
 
 
+def backward_pass(seqs, lens, Abwd, end, begin: int, grouped: dict = None):
+    """K1: the rescaled backward recurrence with its stack spill."""
+    step = _dense_step(Abwd) if grouped is None else _grouped_step(grouped, False)
+    return _backward(seqs, lens, step, end, begin, spill=True)
+
+
+def backward_scores(seqs, lens, Abwd, end, begin: int, grouped: dict = None):
+    """K4: ``backward_pass`` without the stack; the same logP_b, bit for
+    bit (MODE_ARCH_COMP, test_architectures.c:182-184)."""
+    step = _dense_step(Abwd) if grouped is None else _grouped_step(grouped, False)
+    return _backward(seqs, lens, step, end, begin, spill=False)[2]
+
+
 def forward_decode(seqs, lens, Afwd, end, Lmap, ent_state, tmat, begin: int,
-                   bstack, blstack, logpb):
+                   bstack, blstack, logpb, grouped: dict = None):
     """K2: forward recurrence, label and barcode-entry posteriors, and the
     fused optimal-accuracy label DP (barcode_hmm.c:4451)."""
     _enter(seqs)
     B, Lp = seqs.shape
     S = end.shape[0]
-    K = Afwd.shape[1] - S
     H = tmat.shape[0]
     dev = seqs.device
+    if grouped is None:
+        K = Afwd.shape[1] - S
+        dense = _dense_step(Afwd)
+
+        def step(v, oh):
+            Y = dense(v, oh)
+            return Y[:, :S], Y[:, S:]
+    else:
+        K = grouped["eent"].shape[1]
+        blocks = _grouped_step(grouped, True)
+        urows = grouped["urows"].long()
+
+        def step(v, oh):
+            ve = (v[:, urows] @ grouped["uent"]) * (oh @ grouped["eent"])
+            return blocks(v, oh), ve
     oh = _onehot(seqs)
     Lm = Lmap[:, :H]
     tdiag = torch.diagonal(tmat)[None, :]
@@ -102,8 +167,7 @@ def forward_decode(seqs, lens, Afwd, end, Lmap, ent_state, tmat, begin: int,
     dp = torch.zeros((B, H), dtype=torch.float32, device=dev)
     path = torch.empty((Lp, B, H), dtype=path_dtype(H), device=dev)
     for k in range(Lp):
-        Y = _expand(v, oh[:, k]) @ Afwd
-        vn, ve = Y[:, :S], Y[:, S:]
+        vn, ve = step(v, oh[:, k])
         bw = bstack[k + 1]
         # clamped: on padded steps the stale scales can overflow the exp
         w = torch.exp(torch.clamp_max(fls + blstack[k + 1] - logpb, 60.0))

@@ -18,14 +18,25 @@ So both packages provably start from identical parameters.  Kernel layouts:
   replaces the one-hot ``Lmap`` product by a per-label sum;
 * ``Sr`` is S rounded up to 4; the pad rows are zero so the kernels can read
   the carry four states at a time.
+
+The grouped (block-banded) step mode has its own tables, built from the
+shared ``lattice.grouped_step_decomposition`` by ``grouped_tables``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tagdust_tpu.engine.lattice import Lattice, compile_lattice
+from tagdust_tpu.engine.lattice import (
+    Lattice,
+    compile_lattice,
+    grouped_step_decomposition,
+)
 from tagdust_tpu.model import ModelBag
+
+# the JAX kernel packs one silent-exit column per segment into one 128-lane
+# tile (pallas_kernel.py:128-148); the port keeps the same bound
+MAX_SEGMENTS = 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -115,3 +126,68 @@ def tables_from_numpy(dev: dict) -> dict:
         "S": np.asarray(S, dtype=np.int64),
         "K": np.asarray(K, dtype=np.int64),
     }
+
+
+def grouped_tables(dec: dict, lat: Lattice) -> dict:
+    """Kernel tables of the grouped step mode from the JAX package's
+    decomposition dict (``grouped_step_decomposition``, numpy):
+
+        A[c][s, t] = D[c][s, t] (s, t in one span)
+                   + Uexit[s, seg[t]] * wvec[c, t]
+
+    The spans are contiguous ranges of the original states, so the port
+    keeps the original state order (no 128-lane ``gpos`` padding):
+
+    * ``span`` [G, 3] int32: first state, width w, offset of the span's
+      tiles in ``tile_f`` / ``tile_b``;
+    * ``tile_f`` [5 * sum w^2]: span-major, then base, then [src][dst]
+      (``D[c][s0:s1, s0:s1]``); ``tile_b`` holds each tile transposed;
+    * ``span_of`` [S] int32: the span of each state;
+    * ``uexit`` [nm, S]: the silent-exit rows, ``Uexit`` transposed;
+    * ``wvec`` [5, S], ``seg`` [S] int32: the entry weight of each state and
+      the segment it enters (``pallas_kernel.py:227-229``: a state with no
+      entry weight falls in segment 0 with weight 0);
+    * ``urows`` [NU] int32, ``uent`` [NU, K], ``eent`` [5, K]: the non-zero
+      rows of ``Uent`` and the entry emissions, ``Aent = Uent * Eent``.
+    """
+    spans = [(int(a), int(b)) for a, b in dec["spans"]]
+    D = np.asarray(dec["D"], dtype=np.float32)
+    Went = np.asarray(dec["Went"], dtype=np.float32)
+    S = lat.S
+    span = np.zeros((len(spans), 3), dtype=np.int32)
+    span_of = np.zeros(S, dtype=np.int32)
+    tiles_f, tiles_b = [], []
+    off = 0
+    for g, (s0, s1) in enumerate(spans):
+        blk = D[:, s0:s1, s0:s1]
+        span[g] = (s0, s1 - s0, off)
+        span_of[s0:s1] = g
+        tiles_f.append(blk.reshape(-1))
+        tiles_b.append(np.swapaxes(blk, 1, 2).reshape(-1))
+        off += blk.size
+    seg = Went.any(axis=0).argmax(axis=0).astype(np.int32)
+    urows = np.nonzero((lat.Uent != 0).any(axis=1))[0].astype(np.int32)
+    c32 = lambda x: np.ascontiguousarray(x, dtype=np.float32)  # noqa: E731
+    return {
+        "span": span,
+        "tile_f": c32(np.concatenate(tiles_f)),
+        "tile_b": c32(np.concatenate(tiles_b)),
+        "span_of": span_of,
+        "uexit": c32(np.asarray(dec["Uexit"]).T),
+        "wvec": c32(Went[:, seg, np.arange(S)]),
+        "seg": seg,
+        "urows": urows,
+        "uent": c32(lat.Uent[urows]),
+        "eent": c32(lat.Eent),
+    }
+
+
+def grouped_tables_from_lattice(mb: ModelBag, lat: Lattice = None):
+    """``grouped_tables`` of ``mb``, or None where the lattice has no
+    grouped form: a chain wider than a 128-state span, or more than
+    ``MAX_SEGMENTS`` segments."""
+    lat = lat or compile_lattice(mb)
+    dec = grouped_step_decomposition(mb, lat)
+    if dec is None or dec["Uexit"].shape[1] > MAX_SEGMENTS:
+        return None
+    return grouped_tables(dec, lat)

@@ -1,11 +1,14 @@
-"""The flagship barcode set: 20 6nt barcodes, in the repository.
+"""The barcode sets in the repository.
 
-``data/flagship_20x6nt.txt`` holds them in the EDITTAG line format
-(``Tag<i>:SEQ``).  They come from ``generate_barcodes``: a seeded greedy
-pick over the 6-mers with exactly three G/C bases and no run of three equal
-bases, keeping each candidate at Hamming distance >= 3 from every barcode
-already picked.  Regenerate the file with
-``python -m tagdust_tpu_torch.flagship``.
+* ``data/flagship_20x6nt.txt``: the flagship set, 20 barcodes of 6nt;
+* ``data/plate_96x8nt.txt``: a 96-well plate, 96 barcodes of 8nt (the
+  seeded pick finds only 64 at 6nt).
+
+Both are in the EDITTAG line format (``Tag<i>:SEQ``).  They come from
+``generate_barcodes``: a seeded greedy pick over the k-mers with exactly
+k/2 G/C bases and no run of three equal bases, keeping each candidate at
+Hamming distance >= 3 from every barcode already picked.  Regenerate the
+files with ``python -m tagdust_tpu_torch.flagship``.
 """
 
 from __future__ import annotations
@@ -16,8 +19,12 @@ import os
 import numpy as np
 
 SEED = 2024
-PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                    "flagship_20x6nt.txt")
+_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+PATH = os.path.join(_DATA, "flagship_20x6nt.txt")
+PLATE_PATH = os.path.join(_DATA, "plate_96x8nt.txt")
+# (path, count, length, title) of each set
+SETS = [(PATH, 20, 6, "flagship barcode set"),
+        (PLATE_PATH, 96, 8, "96-well plate barcode set")]
 
 
 def generate_barcodes(n: int = 20, length: int = 6, min_dist: int = 3,
@@ -37,12 +44,14 @@ def generate_barcodes(n: int = 20, length: int = 6, min_dist: int = 3,
     raise ValueError(f"only {len(picked)} barcodes at distance >= {min_dist}")
 
 
-def file_text(barcodes: list) -> str:
+def file_text(barcodes: list, title: str = SETS[0][3]) -> str:
+    n, k = len(barcodes), len(barcodes[0])
     head = (
-        "# flagship barcode set of tagdust_tpu_torch\n"
-        f"# {len(barcodes)} barcodes of {len(barcodes[0])}nt, pairwise Hamming "
-        "distance >= 3, three G/C bases each\n"
-        f"# made by tagdust_tpu_torch.flagship.generate_barcodes(seed={SEED})\n"
+        f"# {title} of tagdust_tpu_torch\n"
+        f"# {n} barcodes of {k}nt, pairwise Hamming "
+        f"distance >= 3, {k // 2} G/C bases each\n"
+        f"# made by tagdust_tpu_torch.flagship.generate_barcodes({n}, {k}, 3, "
+        f"seed={SEED})\n"
     )
     return head + "".join(f"Tag{i}:{b}\n" for i, b in enumerate(barcodes))
 
@@ -54,5 +63,6 @@ def load_barcodes(path: str = PATH) -> list:
 
 
 if __name__ == "__main__":
-    with open(PATH, "w") as fh:
-        fh.write(file_text(generate_barcodes()))
+    for path, n, k, title in SETS:
+        with open(path, "w") as fh:
+            fh.write(file_text(generate_barcodes(n, k), title))

@@ -2,7 +2,7 @@
 
 The port runs in a subprocess with ``jax`` blocked (``sys.modules["jax"] =
 None`` before any import), so the test also proves that the port's main
-path imports no JAX.  It labels through the streaming decided mode on CPU
+path, ``-arch`` detection included, imports no JAX.  It labels through the streaming decided mode on CPU
 tensors (``-engine torch``: the plain versions of the kernels); the JAX CLI
 runs ``-engine tpu`` on its XLA scan engine.  Every demultiplexed file must
 be byte-identical.
@@ -27,7 +27,12 @@ BARCODES = ["ACGTAC", "TGCATG", "CCAAGG", "GTTGCA"]
 ARCHS = {
     "barcode": ["-1", f"B:{','.join(BARCODES)}", "-2", "R:N"],
     "fingerprint": ["-1", f"B:{','.join(BARCODES)}", "-2", "F:NNNN", "-3", "R:N"],
+    # -arch detection over the two architectures above and R:N
+    "detect": ["-arch", "{arch_file}"],
 }
+ARCH_FILE = "".join(
+    f"tagdust {' '.join(ARCHS[a])}\n" for a in ("fingerprint", "barcode")
+) + "tagdust -1 R:N\n"
 
 _PORT_RUNNER = """
 import json, sys
@@ -77,13 +82,16 @@ def _outputs(prefix: str) -> dict:
 @pytest.mark.parametrize("arch,window", [
     ("barcode", 64), ("fingerprint", 64),
     ("barcode", 100000),  # one window: the one-shot labelling path
+    ("detect", 64),
 ])
 def test_cli_torch_matches_jax_cli(tmp_path, arch, window):
     fq = str(tmp_path / "in.fq")
     write_fastq(fq, 600, seed=7)
+    arch_file = tmp_path / "arch.txt"
+    arch_file.write_text(ARCH_FILE)
     jax_out = str(tmp_path / "jax")
     port_out = str(tmp_path / "port")
-    common = [*ARCHS[arch], fq, "-Q", "10"]
+    common = [a.format(arch_file=arch_file) for a in ARCHS[arch]] + [fq, "-Q", "10"]
     subprocess.run(
         [sys.executable, "-m", "tagdust_tpu.cli.tagdust", *common, "-o",
          jax_out, "-engine", "tpu"],
