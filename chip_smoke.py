@@ -10,8 +10,10 @@ Phases, each fatal on failure (no phase catches its own error):
 2. build: nvcc builds the kernels from ``tagdust_tpu_torch/engine/csrc``;
 3. kernels: every kernel against its plain PyTorch version on the same CUDA
    tensors, B=16384, Lp=64, read lengths 40-64, median of 5 timed runs of
-   each (CUDA events): K1-K4 dense and grouped on the flagship model (20 x
-   6nt barcodes + R:N), K1-K4 grouped and K4 dense on the 96 x 8nt plate;
+   each (CUDA events): K1-K4 dense on the 8 x 6nt library (the lattice of
+   the dense main path), K1-K4 dense and grouped on the flagship model (20 x
+   6nt barcodes + R:N), K1-K4 grouped and K4 dense on the 96 x 8nt plate,
+   K4 dense on ``R:N`` alone (K = 0, the ``-arch`` candidate scored dense);
    K4's logP_b must equal K1's bit for bit;
 4. gate: dense against grouped K1+K2 at 8, 20, 48 and 96 barcodes, beside
    the FMA counts the step-mode gate reads;
@@ -27,8 +29,8 @@ Phases, each fatal on failure (no phase catches its own error):
       (K4), then the plate's demultiplex in the grouped step mode; the
       plate must win;
 6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
-   ``-Q 20``: the flagship, and the ``-arch`` run (the same winner and
-   confidence); per-read outcomes must agree on >= 99.9%.
+   ``-Q 20``: the flagship, the 8-plex, and the ``-arch`` run (the same
+   winner and confidence); per-read outcomes must agree on >= 99.9%.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,15 +51,22 @@ import numpy as np
 
 SOURCE = "tagdust_tpu_torch/engine/csrc/fused_dp.cu"
 PK = "tagdust_tpu/engine/pallas_kernel.py"
-KERNELS = [  # (counter, name, Pallas kernel it replaces, model it is timed on)
-    ("bwd", "td_bwd", f"{PK}:350", "flagship"),
-    ("fwd", "td_fwd", f"{PK}:384", "flagship"),
+# (counter, name, Pallas kernel it replaces, model whose kernels-phase run
+# gives the row its numbers: a lattice that kernel runs on in a main path)
+KERNELS = [
+    ("bwd", "td_bwd", f"{PK}:350", "8"),
+    ("fwd", "td_fwd", f"{PK}:384", "8"),
     ("tb", "td_tb", f"{PK}:535", "flagship"),
     ("bwd_grouped", "td_bwd_grouped", f"{PK}:350", "plate"),
     ("fwd_grouped", "td_fwd_grouped", f"{PK}:384", "plate"),
-    ("score", "td_bwd_score", f"{PK}:369", "flagship"),
+    ("score", "td_bwd_score", f"{PK}:369", "R:N"),
     ("score_grouped", "td_bwd_score_grouped", f"{PK}:369", "plate"),
 ]
+# kernels-phase runs (model, grouped, full); K3 does not depend on the mode,
+# and the flagship's grouped run, its main path's mode, is the later one
+KERNEL_RUNS = (("8", False, True), ("flagship", False, True),
+               ("flagship", True, True), ("plate", True, True),
+               ("plate", False, False), ("R:N", False, False))
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
 
@@ -558,15 +567,15 @@ def main() -> int:
 
     sets = barcode_sets()
     models = {name: CudaEngine(library_model(b), "cuda") for name, b in sets.items()}
+    kmodels = dict(models, **{"R:N": CudaEngine(library_model([]), "cuda")})
     timing = {}  # (counter, model) -> measurements
-    for name, grouped, full in (("flagship", False, True), ("flagship", True, True),
-                                ("plate", True, True), ("plate", False, False)):
-        for key, r in phase_kernels(models[name], grouped, args.seed, full).items():
+    for name, grouped, full in KERNEL_RUNS:
+        for key, r in phase_kernels(kmodels[name], grouped, args.seed, full).items():
             timing[key, name] = r
     print(f"kernel times above on: {card}", flush=True)
     phase_gate(models, args.seed)
     print(f"gate times above on: {card}", flush=True)
-    del models
+    del models, kmodels
     torch.cuda.empty_cache()
 
     launches = {k: 0 for k, *_ in KERNELS}
@@ -579,8 +588,10 @@ def main() -> int:
             for k in launches:
                 launches[k] += r["launches"][k]
         print(f"main path times above on: {card}", flush=True)
-        flag_args = ["-1", f"B:{','.join(sets['flagship'])}", "-2", "R:N"]
-        phase_cross("flagship", m["fq"], tmp, flag_args, sets["flagship"])
+        for name, r in (("flagship", m), ("8-plex", small)):
+            bcs = sets["flagship" if name == "flagship" else "8"]
+            phase_cross(name, r["fq"], tmp, ["-1", f"B:{','.join(bcs)}", "-2", "R:N"],
+                        bcs)
         phase_cross("arch", arch["fq"], tmp, ["-arch", arch["cands"]],
                     sets["plate"])
     finally:

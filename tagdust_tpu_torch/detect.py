@@ -11,13 +11,18 @@ twice as the reference does, picks the winner.
 
 On a device kind (``cuda``, ``torch``) the reads form one padded batch and
 each candidate is scored by ``CudaEngine.backward_scores`` (K4, in the step
-mode the engine's gate picks); ``exact`` scores on the shared host engine.
+mode the engine's gate picks); ``exact`` runs the shared
+``tagdust_tpu.detect.test_architectures`` itself, which scores on the host
+engine without touching JAX once the engine kind is ``exact``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
+from tagdust_tpu import detect as host_detect
 from tagdust_tpu.arch import (
     ReadStructure,
     build_read_structure,
@@ -26,7 +31,6 @@ from tagdust_tpu.arch import (
     read_arch_file,
 )
 from tagdust_tpu.detect import pretty_print_selected_architecture
-from tagdust_tpu.engine.exact import ExactEngine
 from tagdust_tpu.engine.runner import _pad_tpu_batch, thread_slices
 from tagdust_tpu.io.fastq import SeqReader
 from tagdust_tpu.logsum import logsum
@@ -53,23 +57,6 @@ def _device_scores(reads, models, kind: str) -> np.ndarray:
         get_engine(mb, kind).backward_scores(seqs_p, lens_p)[:numseq]
         for mb in models
     ]).astype(np.float32)
-
-
-def _exact_scores(reads, models) -> np.ndarray:
-    """The same scores on the host exact engine, bucketed by read length
-    (the per-read values do not depend on the bucketing)."""
-    bscores = np.zeros((len(models), len(reads)), dtype=np.float32)
-    engines = [ExactEngine(mb) for mb in models]
-    buckets = {}
-    for idx, r in enumerate(reads):
-        buckets.setdefault(r.len, []).append(idx)
-    for L, idxs in buckets.items():
-        seqs = np.zeros((len(idxs), L + 1), dtype=np.uint8)
-        for bi, idx in enumerate(idxs):
-            seqs[bi, :L] = reads[idx].seq
-        for a, eng in enumerate(engines):
-            bscores[a, idxs] = eng.backward_only(seqs, L)
-    return bscores
 
 
 def _logsum_all(x: np.ndarray):
@@ -104,6 +91,10 @@ def _pick(bscores: np.ndarray, num_threads: int) -> tuple:
 def test_architectures(param, file_num: int, log=None) -> ReadStructure:
     """The read structure of the best candidate of ``param.arch_file`` for
     input file ``file_num``; logs the choice and its confidence."""
+    kind = resolve_engine(param)
+    if kind not in DEVICE_KINDS:
+        return host_detect.test_architectures(
+            dataclasses.replace(param, engine=kind), file_num, log)
     path = param.infile[file_num]
     entries = read_arch_file(param.arch_file)
     if log:
@@ -128,12 +119,7 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
         reader = SeqReader(path, sam_filter=param.filter)
         reads = reader.read_chunk(NUM_QUERY)
         reader.close()
-        models = [mb for _, mb in candidates]
-        kind = resolve_engine(param)
-        if kind in DEVICE_KINDS:
-            bscores = _device_scores(reads, models, kind)
-        else:
-            bscores = _exact_scores(reads, models)
+        bscores = _device_scores(reads, [mb for _, mb in candidates], kind)
         best, best_score = _pick(bscores, param.num_threads)
         if log:
             log(pretty_print_selected_architecture(candidates[best][0]))

@@ -87,6 +87,8 @@ def test_detection_matches_jax(tmp_path, monkeypatch, cands):
     assert fused_kernel.LAUNCHES == before
     for eng in ("tpu", "exact"):
         assert _detect(jax_detect, fq, arch, eng, tmp_path / f"o_{eng}") == port, eng
+    # -engine exact through the port runs the shared host detection
+    assert _detect(port_detect, fq, arch, "exact", tmp_path / "o_px") == port
     assert port[0][0] == "B" and port[1][0][:2] == BARS
     assert len(port[2]) == 2 and port[2][1].endswith("Confidence.\n")
     # the 48-barcode candidate was scored in the grouped step mode
