@@ -12,9 +12,11 @@ Phases, each fatal on failure (no phase catches its own error):
    tensors, B=16384, Lp=64, read lengths 40-64, median of 5 timed runs of
    each (CUDA events): K1-K4 dense on the 8 x 6nt library (the lattice of
    the dense main path), K1-K4 dense and grouped on the flagship model (20 x
-   6nt barcodes + R:N), K1-K4 grouped and K4 dense on the 96 x 8nt plate,
-   K4 dense on ``R:N`` alone (K = 0, the ``-arch`` candidate scored dense);
-   K4's logP_b must equal K1's bit for bit;
+   6nt barcodes + R:N), K1-K4 grouped and K1/K4 dense on the 96 x 8nt
+   plate, K1/K4 dense on ``R:N`` alone (K = 0, the ``-arch`` candidate
+   scored dense) and on the plate's barcodes + a 140nt spacer + R:N (S =
+   2115, no grouped form: the lattice the dense mode exists for); K4's
+   logP_b must equal K1's bit for bit;
 4. gate: dense against grouped K1+K2 at 8, 20, 48 and 96 barcodes, beside
    the FMA counts the step-mode gate reads;
 5. main paths, each through the port's CLI entry point with the launch
@@ -63,10 +65,13 @@ KERNELS = [
     ("score_grouped", "td_bwd_score_grouped", f"{PK}:369", "plate"),
 ]
 # kernels-phase runs (model, grouped, full); K3 does not depend on the mode,
-# and the flagship's grouped run, its main path's mode, is the later one
+# and the flagship's grouped run, its main path's mode, is the later one.
+# "spacer" is the plate's barcodes + a 140nt spacer + R:N, which has no
+# grouped form: the lattice the dense mode exists for
 KERNEL_RUNS = (("8", False, True), ("flagship", False, True),
                ("flagship", True, True), ("plate", True, True),
-               ("plate", False, False), ("R:N", False, False))
+               ("plate", False, False), ("R:N", False, False),
+               ("spacer", False, False))
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
 
@@ -83,9 +88,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def library_model(barcodes, max_len: int = 64):
-    """``-1 B:<barcodes> -2 R:N`` (``-1 R:N`` without barcodes) with the
-    flagship's sequence stats."""
+def library_model(barcodes, max_len: int = 64, spacer: str = ""):
+    """``-1 B:<barcodes> -2 R:N`` (``-1 R:N`` without barcodes; ``-1
+    B:<barcodes> -2 S:<spacer> -3 R:N`` with a spacer) with the flagship's
+    sequence stats."""
     from tagdust_tpu.arch import build_read_structure
     from tagdust_tpu.logsum import p2sp
     from tagdust_tpu.model import init_model_bag
@@ -97,8 +103,9 @@ def library_model(barcodes, max_len: int = 64):
     ssi.background = [float(p2sp(p)) for p in (0.27, 0.24, 0.26, 0.22, 0.01)]
     ssi.mean_5_len = ssi.stdev_5_len = -1.0
     ssi.mean_3_len = ssi.stdev_3_len = -1.0
-    rs = build_read_structure(
-        [f"B:{','.join(barcodes)}", "R:N"] if barcodes else ["R:N"])
+    segs = ([f"B:{','.join(barcodes)}"] if barcodes else []) + (
+        [f"S:{spacer}"] if spacer else []) + ["R:N"]
+    rs = build_read_structure(segs)
     return init_model_bag(rs, ssi, 0.05, 0.1)
 
 
@@ -141,7 +148,7 @@ def close(a, b, atol, rtol) -> tuple:
 def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
                   device: str = "cuda", B: int = 16384, Lp: int = 64) -> dict:
     """K1-K4 of one step mode against the plain versions on identical
-    inputs (``full=False``: K4 only, with K1 for the bitwise check).
+    inputs (``full=False``: K4 and K1 only).
     Returns {counter: {"ms", "plain_ms", "max_abs_err"}}."""
     import torch
 
@@ -186,6 +193,13 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
     if device == "cuda":
         res["score" + sfx] = {"ms": timed(k4), "plain_ms": timed(p4), "max_abs_err": e4}
     if not full:
+        del bst, blst
+        e1, ok1 = close(logpb, p1()[2], 1e-4, 1e-5)
+        print(f"[{tag}] K1 logpb max|d|={e1:.3g}", flush=True)
+        if not ok1:
+            fail("logpb outside its tolerance")
+        if device == "cuda":
+            res["bwd" + sfx] = {"ms": timed(k1), "plain_ms": timed(p1), "max_abs_err": e1}
         report(tag, res, B, Lp)
         return res
 
@@ -546,6 +560,7 @@ def main() -> int:
         fail("no CUDA device")
     from tagdust_tpu_torch.engine import build
     from tagdust_tpu_torch.engine.cuda import CudaEngine
+    from tagdust_tpu_torch.flagship import spacer
 
     card = card_line()
     print(f"card: {card}")
@@ -567,7 +582,9 @@ def main() -> int:
 
     sets = barcode_sets()
     models = {name: CudaEngine(library_model(b), "cuda") for name, b in sets.items()}
-    kmodels = dict(models, **{"R:N": CudaEngine(library_model([]), "cuda")})
+    kmodels = dict(models, **{
+        "R:N": CudaEngine(library_model([]), "cuda"),
+        "spacer": CudaEngine(library_model(sets["plate"], spacer=spacer()), "cuda")})
     timing = {}  # (counter, model) -> measurements
     for name, grouped, full in KERNEL_RUNS:
         for key, r in phase_kernels(kmodels[name], grouped, args.seed, full).items():

@@ -9,6 +9,10 @@ for CPU tensors it runs the plain PyTorch version of ``engine/scan.py`` in
 the same mode.  Nothing falls back from the card to the plain version or
 from one mode to the other.
 
+In the dense mode K1 and K4 read the non-zero entries of ``Ab``
+(``tables.sparse_tables``: buffers ``nz_ptr``, ``nz_idx``, ``nz_val``,
+``nz_out``); K2 and the plain versions read the dense matrices.
+
 ``LAUNCHES`` counts kernel launches per kernel and mode, so a run can show
 that its main path went through the kernels.
 """
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from . import scan
+from .tables import sparse_tables
 
 LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0, "bwd_grouped": 0, "fwd_grouped": 0,
             "score": 0, "score_grouped": 0}
@@ -28,6 +33,7 @@ _TABLES = ("Afwd", "Abwd", "Af", "Ab", "end", "Lmap", "lab_ptr", "lab_idx",
            "ent_state", "tmat")
 _GROUPED = ("span", "tile_f", "tile_b", "span_of", "uexit", "wvec", "seg",
             "urows", "uent", "eent")
+_SPARSE = ("nz_ptr", "nz_idx", "nz_val", "nz_out")
 
 
 def _stream() -> int:
@@ -52,12 +58,17 @@ class FusedScorer(nn.Module):
         for name in _TABLES:
             _buffer(self, name, tables[name])
         self.grouped = grouped is not None
-        self.nm = self.NU = 0
+        self.nm = self.NU = self.nh = 0
         if self.grouped:
             for name in _GROUPED:
                 _buffer(self, "g_" + name, grouped[name])
             self.nm = int(grouped["uexit"].shape[0])
             self.NU = int(grouped["urows"].shape[0])
+        else:
+            sp = sparse_tables(tables["Ab"])
+            self.nh = sp.pop("nz_heavy")
+            for name, x in sp.items():
+                _buffer(self, name, x)
         self._rt = {}
 
     def grouped_tables(self) -> dict:
@@ -106,14 +117,19 @@ class FusedScorer(nn.Module):
         return self._rt[kernel]
 
     def _step_args(self, fwd: bool) -> list:
-        """Step matrix, then the grouped-step table pointers (0 if dense)."""
+        """Step matrix (K2 dense ``Af``, the span tiles when grouped, 0 for
+        dense K1/K4), the grouped-step table pointers (0 if dense), and for
+        K1/K4 the non-zero tables of ``Ab`` (0 if grouped)."""
         if not self.grouped:
-            return [(self.Af if fwd else self.Ab).data_ptr()] + [None] * 5
+            args = [self.Af.data_ptr() if fwd else None] + [None] * 5
+            if not fwd:
+                args += [getattr(self, n).data_ptr() for n in _SPARSE]
+            return args
         tile = self.g_tile_f if fwd else self.g_tile_b
         return [tile.data_ptr()] + [
             getattr(self, "g_" + n).data_ptr()
             for n in ("span", "span_of", "uexit", "wvec", "seg")
-        ]
+        ] + ([] if fwd else [None] * len(_SPARSE))
 
     # ---------------- K1 ----------------
     def backward(self, seqs: torch.Tensor, lens: torch.Tensor):
@@ -133,7 +149,7 @@ class FusedScorer(nn.Module):
         err = lib().td_bwd(
             seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
             bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
-            B, Lp, self.S, self.Sr, self.begin, self.nm, int(self.grouped),
+            B, Lp, self.S, self.Sr, self.begin, self.nm, self.nh, int(self.grouped),
             self.reads_per_block("bwd"), _stream(),
         )
         check(err, "td_bwd")
@@ -154,7 +170,7 @@ class FusedScorer(nn.Module):
         m, *g = self._step_args(fwd=False)
         err = lib().td_bwd_score(
             seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
-            logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin, self.nm,
+            logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin, self.nm, self.nh,
             int(self.grouped), self.reads_per_block("bwd"), _stream(),
         )
         check(err, "td_bwd_score")

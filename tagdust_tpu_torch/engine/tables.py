@@ -19,8 +19,10 @@ So both packages provably start from identical parameters.  Kernel layouts:
 * ``Sr`` is S rounded up to 4; the pad rows are zero so the kernels can read
   the carry four states at a time.
 
-The grouped (block-banded) step mode has its own tables, built from the
-shared ``lattice.grouped_step_decomposition`` by ``grouped_tables``.
+The dense backward step (K1, K4) walks only the non-zero entries of ``Ab``,
+listed per base and output state by ``sparse_tables``.  The grouped
+(block-banded) step mode has its own tables, built from the shared
+``lattice.grouped_step_decomposition`` by ``grouped_tables``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ from tagdust_tpu.model import ModelBag
 # the JAX kernel packs one silent-exit column per segment into one 128-lane
 # tile (pallas_kernel.py:128-148); the port keeps the same bound
 MAX_SEGMENTS = 128
+# an output of the sparse backward step with more inputs than this under
+# some base goes to a warp of its own (sparse_tables)
+HEAVY_INPUTS = 32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -125,6 +130,46 @@ def tables_from_numpy(dev: dict) -> dict:
         "begin": np.asarray(int(dev["begin"]), dtype=np.int64),
         "S": np.asarray(S, dtype=np.int64),
         "K": np.asarray(K, dtype=np.int64),
+    }
+
+
+def sparse_tables(Ab: np.ndarray) -> dict:
+    """The non-zero entries of the dense backward step ``Ab`` [5, Sr, S]
+    (``Ab[c, t, s] = A[c][s, t]``: input ``t``, output ``s``), per base and
+    output state:
+
+    * ``nz_ptr`` [5, S+1] int32: the inputs of output ``s`` under base ``c``
+      are entries ``nz_ptr[c, s]`` to ``nz_ptr[c, s+1]`` of the two arrays
+      below, which all bases share;
+    * ``nz_idx`` [nnz] int32: the input states, ascending within an output;
+    * ``nz_val`` [nnz] f32: ``Ab[c, t, s]``, copied;
+    * ``nz_out`` [S] int32: the outputs, ascending, those with more than
+      ``HEAVY_INPUTS`` inputs under some base (the silent states that fan
+      out to every barcode) moved to the end;
+    * ``nz_heavy``: the number of those heavy outputs.
+
+    The kernel walks an output's inputs in ascending order, the order of
+    the dense product's fmaf chain, and skips only exact zeros, so its sums
+    equal the dense ones bit for bit.  A thread takes a light output for 8
+    reads at a time; a warp takes a heavy one, a lane per read."""
+    Ab = np.asarray(Ab, dtype=np.float32)
+    S = Ab.shape[2]
+    # C order of [c, s, t]: by base, then output, then ascending input
+    c, s, t = np.nonzero(np.swapaxes(Ab, 1, 2))
+    if c.size >= 2**31:
+        raise ValueError(f"{c.size} non-zero step entries overflow int32")
+    counts = np.bincount(c * S + s, minlength=5 * S).reshape(5, S)
+    ptr = np.zeros((5, S + 1), dtype=np.int64)
+    ptr[:, 1:] = np.cumsum(counts, axis=1)
+    ptr += np.concatenate([[0], np.cumsum(counts.sum(axis=1))[:-1]])[:, None]
+    heavy = counts.max(axis=0) > HEAVY_INPUTS
+    return {
+        "nz_ptr": ptr.astype(np.int32),
+        "nz_idx": t.astype(np.int32),
+        "nz_val": np.ascontiguousarray(Ab[c, t, s]),
+        "nz_out": np.concatenate([np.nonzero(~heavy)[0],
+                                  np.nonzero(heavy)[0]]).astype(np.int32),
+        "nz_heavy": int(heavy.sum()),
     }
 
 

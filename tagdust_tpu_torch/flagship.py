@@ -44,6 +44,13 @@ def generate_barcodes(n: int = 20, length: int = 6, min_dist: int = 3,
     raise ValueError(f"only {len(picked)} barcodes at distance >= {min_dist}")
 
 
+def spacer(length: int = 140, seed: int = SEED) -> str:
+    """A seeded random spacer of ``length`` nt for an ``S:`` segment.  Its
+    chain is 2 * length states wide, so past 64nt a library that holds it
+    has no grouped (block-banded) form and runs the dense step mode."""
+    return "".join("ACGT"[i] for i in np.random.default_rng(seed).integers(0, 4, length))
+
+
 def file_text(barcodes: list, title: str = SETS[0][3]) -> str:
     n, k = len(barcodes), len(barcodes[0])
     head = (

@@ -19,6 +19,7 @@ from tagdust_tpu.stats import SequenceStats
 from tagdust_tpu_torch.engine import fused_kernel, scan
 from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
 from tagdust_tpu_torch.engine.tables import tables_from_lattice
+from tagdust_tpu_torch.flagship import PLATE_PATH, load_barcodes, spacer
 
 # (segments, average length, max length, Lp, BT, B, read-length range,
 #  f_log tolerance (rtol, atol))
@@ -148,13 +149,16 @@ def _barcodes(n):
 
 # (segments, average length, Lp): a small lattice, the 20-barcode flagship
 # size, a 591-state lattice (more than one state per thread of a 256-thread
-# block), a fingerprint + spacer grammar, and long reads
+# block), a fingerprint + spacer grammar, long reads, and the 96-well plate
+# + a 140nt spacer (2115 states, no grouped form: three passes of 705
+# outputs, one of them with 679 inputs)
 CUDA_CASES = [
     (["B:ACGTAC,TGCATG,CCAAGG", "R:N"], 30, 64),
     ([f"B:{','.join(_barcodes(20))}", "R:N"], 50, 64),
     ([f"B:{','.join(_barcodes(48))}", "R:N"], 50, 64),
     (["F:NN", "B:ACGTAC,TGCATG,CCAAGG", "S:TA", "R:N"], 26, 32),
     (["B:ACGT,TGCA", "R:N"], 120, 160),
+    ([f"B:{','.join(load_barcodes(PLATE_PATH))}", f"S:{spacer()}", "R:N"], 50, 64),
 ]
 
 
@@ -163,7 +167,8 @@ CUDA_CASES = [
                          ids=[f"{len(c[0][0])}-{c[2]}" for c in CUDA_CASES])
 def test_cuda_kernels_match_plain(specs, avg, Lp):
     """K1-K3 on the card against the plain versions (tolerances of
-    chip_smoke.py: f32 sums in another order over Lp rescaled steps)."""
+    chip_smoke.py: f32 sums in another order over Lp rescaled steps); K4
+    equals K1's logP_b bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     mb = model(specs, avg, Lp + 16)
@@ -177,6 +182,7 @@ def test_cuda_kernels_match_plain(specs, avg, Lp):
     torch.cuda.synchronize()
     assert all(fused_kernel.LAUNCHES[k] == before[k] + 1
                for k in ("bwd", "fwd", "tb"))
+    assert torch.equal(sc.score(seqs, lens), logpb)
     bst, blst, plogpb = scan.backward_pass(seqs, lens, sc.Abwd, sc.end, sc.begin)
     path, dp, pf, ptp = scan.forward_decode(
         seqs, lens, sc.Afwd, sc.end, sc.Lmap, sc.ent_state, sc.tmat, sc.begin,
