@@ -10,15 +10,16 @@ Phases, each fatal on failure (no phase catches its own error):
 2. build: nvcc builds the kernels from ``tagdust_tpu_torch/engine/csrc``;
 3. kernels: every kernel against its plain PyTorch version on the same CUDA
    tensors, B=16384, Lp=64, read lengths 40-64, median of 5 timed runs of
-   each (CUDA events): K1-K4 dense on the 8 x 6nt library (the lattice of
-   the dense main path), K1-K4 dense and grouped on the flagship model (20 x
-   6nt barcodes + R:N), K1-K4 grouped and K1/K4 dense on the 96 x 8nt
-   plate, K1/K4 dense on ``R:N`` alone (K = 0, the ``-arch`` candidate
-   scored dense) and on the plate's barcodes + a 140nt spacer + R:N (S =
-   2115, no grouped form: the lattice the dense mode exists for); K4's
-   logP_b must equal K1's bit for bit;
-4. gate: dense against grouped K1+K2 at 8, 20, 48 and 96 barcodes, beside
-   the FMA counts the step-mode gate reads;
+   each (CUDA events): K1-K4 dense on the 8 x 6nt library, the flagship
+   model (20 x 6nt barcodes + R:N), the 96 x 8nt plate and the plate's
+   barcodes + a 140nt spacer + R:N (S = 2115, no grouped form), the
+   lattices of the main paths; K1-K4 grouped (the mode forced) on the
+   flagship and the plate; K1/K4 dense on ``R:N`` alone (K = 0, an
+   ``-arch`` candidate); K4's logP_b must equal K1's bit for bit;
+4. gate: dense against grouped K1, K2 and K4 at 8, 20, 48 and 96
+   barcodes, beside the work the step-mode gate reads; the gate must pick,
+   per kernel, the mode measured faster; the dense kernels alone on the
+   plate + spacer;
 5. main paths, each through the port's CLI entry point with the launch
    counts set to 0 just before it and read just after; every kernel of the
    path must have launched, no plain version may run on CUDA tensors,
@@ -28,13 +29,16 @@ Phases, each fatal on failure (no phase catches its own error):
    b. the same over 200k reads of an 8 x 6nt library (dense step mode);
    c. ``tagdust -arch`` over a generated 1M-read 96-plex FASTQ with the
       flagship, the plate and R:N as candidates: detection on the card
-      (K4), then the plate's demultiplex in the grouped step mode; the
-      plate must win;
+      (K4), then the plate's demultiplex; the plate must win;
+   each prints the step mode of each kernel and its launches;
 6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
    ``-Q 20``: the flagship, the 8-plex, and the ``-arch`` run (the same
    winner and confidence); per-read outcomes must agree on >= 99.9%.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record: per kernel its
+times, its launches on the main paths, and its bound on this card (the
+larger of the bytes it must move over 3.35 TB/s and the f32 operations the
+inputs need over 67 TFLOP/s, ``bound``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,24 +58,28 @@ import numpy as np
 SOURCE = "tagdust_tpu_torch/engine/csrc/fused_dp.cu"
 PK = "tagdust_tpu/engine/pallas_kernel.py"
 # (counter, name, Pallas kernel it replaces, model whose kernels-phase run
-# gives the row its numbers: a lattice that kernel runs on in a main path)
+# gives the row its numbers: the plate, the lattice of the main path with
+# the most device time; the grouped rows from the plate in the forced mode)
 KERNELS = [
-    ("bwd", "td_bwd", f"{PK}:350", "8"),
-    ("fwd", "td_fwd", f"{PK}:384", "8"),
-    ("tb", "td_tb", f"{PK}:535", "flagship"),
+    ("bwd", "td_bwd", f"{PK}:350", "plate"),
+    ("fwd", "td_fwd", f"{PK}:384", "plate"),
+    ("tb", "td_tb", f"{PK}:535", "plate"),
     ("bwd_grouped", "td_bwd_grouped", f"{PK}:350", "plate"),
     ("fwd_grouped", "td_fwd_grouped", f"{PK}:384", "plate"),
-    ("score", "td_bwd_score", f"{PK}:369", "R:N"),
+    ("score", "td_bwd_score", f"{PK}:369", "plate"),
     ("score_grouped", "td_bwd_score_grouped", f"{PK}:369", "plate"),
 ]
 # kernels-phase runs (model, grouped, full); K3 does not depend on the mode,
-# and the flagship's grouped run, its main path's mode, is the later one.
-# "spacer" is the plate's barcodes + a 140nt spacer + R:N, which has no
-# grouped form: the lattice the dense mode exists for
-KERNEL_RUNS = (("8", False, True), ("flagship", False, True),
-               ("flagship", True, True), ("plate", True, True),
-               ("plate", False, False), ("R:N", False, False),
-               ("spacer", False, False))
+# and the dense run, the main paths' mode, is the later one.  "spacer" is
+# the plate's barcodes + a 140nt spacer + R:N, which has no grouped form
+KERNEL_RUNS = (("flagship", True, True), ("plate", True, True),
+               ("8", False, True), ("flagship", False, True),
+               ("plate", False, True), ("R:N", False, False),
+               ("spacer", False, True))
+# the H100's published rates (on-chip-measurement guide): HBM bytes/s and
+# f32 FLOP/s outside the tensor cores
+HBM_RATE = 3.35e12
+F32_RATE = 67e12
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
 
@@ -92,10 +100,10 @@ def library_model(barcodes, max_len: int = 64, spacer: str = ""):
     """``-1 B:<barcodes> -2 R:N`` (``-1 R:N`` without barcodes; ``-1
     B:<barcodes> -2 S:<spacer> -3 R:N`` with a spacer) with the flagship's
     sequence stats."""
-    from tagdust_tpu.arch import build_read_structure
-    from tagdust_tpu.logsum import p2sp
-    from tagdust_tpu.model import init_model_bag
-    from tagdust_tpu.stats import SequenceStats
+    from tagdust_tpu_torch.arch import build_read_structure
+    from tagdust_tpu_torch.logsum import p2sp
+    from tagdust_tpu_torch.model import init_model_bag
+    from tagdust_tpu_torch.stats import SequenceStats
 
     ssi = SequenceStats()
     ssi.average_length = 50
@@ -161,6 +169,13 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
         fail("the lattice has no grouped form")
     sc = FusedScorer(eng.tables, g).to(device)
     gt = sc.grouped_tables()
+    if device == "cuda":
+        print(f"[S={sc.S} {'grouped' if grouped else 'dense'}] reads per block, "
+              "staged (0 none, 1 label tables, 2 and step tables), blocks per SM: "
+              f"K1 {sc.reads_per_block('bwd')}, {sc.staged('bwd')}, "
+              f"{sc.blocks_per_sm('bwd')}; K4 {sc.blocks_per_sm('bwd', spill=False)}; "
+              f"K2 {sc.reads_per_block('fwd')}, {sc.staged('fwd')}, "
+              f"{sc.blocks_per_sm('fwd')}", flush=True)
     sfx = "_grouped" if grouped else ""
     tag = f"S={sc.S} {'grouped' if grouped else 'dense'}"
     rng = np.random.default_rng(seed)
@@ -190,8 +205,10 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
     if not torch.equal(score, logpb):
         fail("K4 logpb differs from K1's")
     res = {}
+    bounds = bound(eng, seqs, lens)
     if device == "cuda":
-        res["score" + sfx] = {"ms": timed(k4), "plain_ms": timed(p4), "max_abs_err": e4}
+        res["score" + sfx] = {"ms": timed(k4), "plain_ms": timed(p4), "max_abs_err": e4,
+                              **bounds["score"]}
     if not full:
         del bst, blst
         e1, ok1 = close(logpb, p1()[2], 1e-4, 1e-5)
@@ -199,7 +216,8 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
         if not ok1:
             fail("logpb outside its tolerance")
         if device == "cuda":
-            res["bwd" + sfx] = {"ms": timed(k1), "plain_ms": timed(p1), "max_abs_err": e1}
+            res["bwd" + sfx] = {"ms": timed(k1), "plain_ms": timed(p1), "max_abs_err": e1,
+                                **bounds["bwd"]}
         report(tag, res, B, Lp)
         return res
 
@@ -274,56 +292,110 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
         for key, kfn, pfn, err in (("bwd", k1, p1, e1), ("fwd", k2, p2, ef),
                                    ("tb", k3, p3, float(n_tb))):
             res[key if key == "tb" else key + sfx] = {
-                "ms": timed(kfn), "plain_ms": timed(pfn), "max_abs_err": err}
+                "ms": timed(kfn), "plain_ms": timed(pfn), "max_abs_err": err,
+                **bounds[key]}
     report(tag, res, B, Lp)
     return res
 
 
+def bound(eng, seqs, lens) -> dict:
+    """{counter stem: {"bound_ms", "bound_by"}}: the least time the card
+    could take for each kernel's function on these inputs, the larger of
+    the bytes it must move (each input read once, each output written once)
+    over HBM_RATE and the f32 operations these reads need over F32_RATE.
+    Operations per (read, position) inside the read, under its base c: K1
+    and K4 2 * nnz(A[c]) for the step's FMAs and 2 S for the rescale; K2 2
+    * nnz(Af[c]) for the step and its entry columns, 4 S for the
+    posteriors and the rescale, 3 K for the entry posteriors, 2 * nnz(tmat)
+    + 2 H for the label DP.  Both step modes compute the same function and
+    share the bound.  K3 reads one backpointer per position."""
+    import torch
+
+    t = eng.tables
+    S, K, H = int(t["S"]), int(t["K"]), int(t["tmat"].shape[0])
+    B, Lp = seqs.shape
+    pos = torch.arange(Lp, device=seqs.device)[None, :] < lens[:, None]
+    steps = torch.bincount(seqs.long()[pos], minlength=6)[:5].double().cpu().numpy()
+    nnz_b = np.count_nonzero(t["Ab"].reshape(5, -1), axis=1)
+    nnz_f = np.count_nonzero(t["Af"].reshape(5, -1), axis=1)
+    n_steps = steps.sum()
+    inputs = B * Lp + 4 * B
+    stack = (Lp + 1) * B * (S + 1) * 4 + 4 * B
+    tables_b = 8 * nnz_b.sum() + 4 * 5 * (S + 1)
+    tables_f = 8 * nnz_f.sum() + 4 * 5 * (S + K + 1) + 12 * np.count_nonzero(t["tmat"])
+    path = Lp * B * H * (1 if H <= 127 else 4)
+    ops_b = 2 * (steps @ nnz_b) + 2 * S * n_steps
+    ops_f = (2 * (steps @ nnz_f) + (4 * S + 3 * K + 2 * H
+             + 2 * np.count_nonzero(t["tmat"])) * n_steps)
+    work = {
+        "bwd": (inputs + tables_b + stack, ops_b),
+        "score": (inputs + tables_b + 4 * B, ops_b),
+        "fwd": (inputs + tables_f + stack + path + 4 * B * (H + K + 1), ops_f),
+        "tb": (B * Lp * (1 if H <= 127 else 4) + 4 * B * H + 4 * B * (Lp + 1), B * H),
+    }
+    out = {}
+    for key, (nbytes, ops) in work.items():
+        tb, to = 1e3 * nbytes / HBM_RATE, 1e3 * ops / F32_RATE
+        out[key] = {"bound_ms": float(max(tb, to)),
+                    "bound_by": "bytes" if tb >= to else "operations"}
+    return out
+
+
 def report(tag: str, res: dict, B: int, Lp: int) -> None:
     for key, r in res.items():
-        print(f"[{tag}] {key}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms "
-              f"(B={B}, Lp={Lp})", flush=True)
+        print(f"[{tag}] {key}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) (B={B}, Lp={Lp})",
+              flush=True)
 
 
 def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
-    """Dense against grouped K1+K2 (median of 5, CUDA events) at each library
-    size, beside the FMA counts and the mode the gate picks."""
+    """Dense against grouped K1, K2 and K4 (median of 5, CUDA events) at each
+    library size, beside the work the per-kernel gate reads; the gate must
+    pick, for K1/K4 and for K2, the mode measured faster.  Libraries without
+    a grouped form run the dense kernels alone."""
     import torch
 
-    from tagdust_tpu_torch.engine.cuda import (
-        GROUPED_FMA_SHARE,
-        grouped_step_mode,
-        step_fmas,
-    )
+    from tagdust_tpu_torch.engine.cuda import GROUPED_WORK_SHARE, step_modes, step_work
     from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
     from tagdust_tpu_torch.engine.tables import grouped_tables_from_lattice
 
     rng = np.random.default_rng(seed)
     seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
     lens = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).cuda()
-    print(f"gate (B={B}, Lp={Lp}, GROUPED_FMA_SHARE={GROUPED_FMA_SHARE}): "
-          "barcodes, S, K, spans, FMA share, dense K1+K2 ms, grouped K1+K2 ms, "
-          "gate picks", flush=True)
+    print(f"gate (B={B}, Lp={Lp}, GROUPED_WORK_SHARE={GROUPED_WORK_SHARE}): per "
+          "library S, K, spans, grouped work / non-zero entries per kernel, K1, K2 "
+          "and K4 ms dense and grouped, the gate's pick and the faster mode",
+          flush=True)
     for name, eng in models.items():
         g = grouped_tables_from_lattice(eng.mb, eng.lat)
         ms = {}
         for mode, gg in (("dense", None), ("grouped", g)):
+            if gg is None and mode == "grouped":
+                continue
             sc = FusedScorer(eng.tables, gg).cuda()
-
-            def k12():
-                bst, blst, lp = sc.backward(seqs, lens)
-                sc.forward_decode(seqs, lens, bst, blst, lp)
-
-            ms[mode] = timed(k12)
-            del sc
-        dense, grouped = step_fmas(eng.lat.S, int(eng.tables["K"]), g["span"][:, 1],
-                                   g["uexit"].shape[0], g["urows"].shape[0])
-        pick = "grouped" if grouped_step_mode(eng.mb, eng.lat) is not None else "dense"
-        faster = "grouped" if ms["grouped"] < ms["dense"] else "dense"
+            bst, blst, lp = sc.backward(seqs, lens)
+            ms["K1", mode] = timed(lambda: sc.backward(seqs, lens))
+            ms["K2", mode] = timed(lambda: sc.forward_decode(seqs, lens, bst, blst, lp))
+            ms["K4", mode] = timed(lambda: sc.score(seqs, lens))
+            del sc, bst, blst, lp
+            torch.cuda.empty_cache()
+        times = ", ".join(f"{k} {m} {v:.3f}" for (k, m), v in ms.items())
+        if g is None:
+            print(f"gate {name}: S={eng.lat.S} no grouped form; ms {times}", flush=True)
+            continue
+        ratio = {k: gw / d for k, (d, gw) in step_work(eng.tables, g).items()}
+        _, kernels = step_modes(eng.mb, eng.lat, eng.tables)
+        line = []
+        for k, stem in (("bwd", ("K1", "K4")), ("fwd", ("K2",))):
+            pick = "grouped" if k in kernels else "dense"
+            for kk in stem:
+                faster = "grouped" if ms[kk, "grouped"] < ms[kk, "dense"] else "dense"
+                line.append(f"{kk} picks {pick}, faster {faster}")
+                if pick != faster:
+                    fail(f"gate {name}: {kk} picks {pick}, measured faster {faster}")
         print(f"gate {name}: S={eng.lat.S} K={int(eng.tables['K'])} "
-              f"spans={len(g['span'])} share={grouped / dense:.3f} "
-              f"dense={ms['dense']:.3f} ms grouped={ms['grouped']:.3f} ms "
-              f"picks {pick}, faster {faster}", flush=True)
+              f"spans={len(g['span'])} work ratio K1/K4 {ratio['bwd']:.1f} K2 "
+              f"{ratio['fwd']:.1f}; ms {times}; {'; '.join(line)}", flush=True)
 
 
 BARCODE_SUB = 0.05
@@ -387,8 +459,9 @@ def run_tagdust(args) -> float:
 
 def run_path(name: str, args, expect) -> dict:
     """Drive one main path through the CLI, with the launch counts set to 0
-    just before it and read just after; every kernel in ``expect`` must have
-    launched, and no plain version may have run on CUDA tensors."""
+    just before it and read just after; every kernel in ``expect`` (the
+    counters of the kernels the path runs, in the mode the gate picks) must
+    have launched, and no plain version may have run on CUDA tensors."""
     from tagdust_tpu_torch import controller
     from tagdust_tpu_torch.engine import fused_kernel, runner, scan
 
@@ -403,9 +476,9 @@ def run_path(name: str, args, expect) -> dict:
     cal = controller.TIMINGS["calibration"]
     det = controller.TIMINGS["detection"]
     print(f"[{name}] {wall:.2f} s wall, detection {det:.2f} s, calibration "
-          f"{cal:.2f} s; launches "
-          f"{launches}, streaming windows {windows}, plain-on-CUDA calls {plain}",
-          flush=True)
+          f"{cal:.2f} s; the path's kernels and launches "
+          f"{ {k: launches[k] for k in expect} }, all launches {launches}, "
+          f"streaming windows {windows}, plain-on-CUDA calls {plain}", flush=True)
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         fail(f"{name}: kernels of the path never launched: {missing}")
@@ -438,21 +511,26 @@ def check_output(name: str, out: str, bcs, truth) -> None:
         fail(f"{name}: barcode precision {precision:.4f} < 0.99")
 
 
-def mode_suffix(bcs) -> str:
-    """The counter suffix of the step mode the gate picks for ``bcs``."""
-    from tagdust_tpu.engine.lattice import compile_lattice
-
-    from tagdust_tpu_torch.engine.cuda import grouped_step_mode
+def modes(bcs) -> dict:
+    """The counter suffix of the step mode the gate picks for K1/K4 ("bwd")
+    and K2 ("fwd") of ``-1 B:<bcs> -2 R:N``."""
+    from tagdust_tpu_torch.engine.cuda import step_modes
+    from tagdust_tpu_torch.engine.lattice import compile_lattice
+    from tagdust_tpu_torch.engine.tables import tables_from_lattice
 
     mb = library_model(bcs)
-    return "_grouped" if grouped_step_mode(mb, compile_lattice(mb)) is not None else ""
+    lat = compile_lattice(mb)
+    _, kernels = step_modes(mb, lat, tables_from_lattice(mb, lat))
+    return {k: "_grouped" if k in kernels else "" for k in ("bwd", "fwd")}
 
 
-def path_kernels(bcs) -> list:
+def path_kernels(name: str, bcs) -> list:
     """The counters of the kernels a demultiplex of ``bcs`` runs: K1 and K2
-    in the step mode the gate picks, and K3."""
-    sfx = mode_suffix(bcs)
-    return ["bwd" + sfx, "fwd" + sfx, "tb"]
+    in the step modes the gate picks, and K3."""
+    m = modes(bcs)
+    print(f"[{name}] step modes: K1/K4 {m['bwd'][1:] or 'dense'}, K2 "
+          f"{m['fwd'][1:] or 'dense'}", flush=True)
+    return ["bwd" + m["bwd"], "fwd" + m["fwd"], "tb"]
 
 
 def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str) -> dict:
@@ -464,7 +542,7 @@ def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str) -> dict:
           flush=True)
     out = os.path.join(tmp, f"{name}_out")
     res = run_path(name, ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-o", out,
-                          "-engine", "cuda"], path_kernels(bcs))
+                          "-engine", "cuda"], path_kernels(name, bcs))
     print(f"[{name}] {n_reads / res['wall_s']:.0f} reads/s", flush=True)
     check_output(name, out, bcs, truth)
     return dict(res, fq=fq)
@@ -502,9 +580,9 @@ def phase_arch(sets: dict, seed: int, n_reads: int, tmp: str) -> dict:
     cands = write_candidates(tmp, sets)
     out = os.path.join(tmp, "arch_out")
     # K4 of each candidate in its step mode, then the plate's K1-K3
-    expect = {"score" + mode_suffix(b) for b in (sets["flagship"], bcs, [])}
+    expect = {"score" + modes(b)["bwd"] for b in (sets["flagship"], bcs, [])}
     res = run_path("arch", ["-arch", cands, fq, "-o", out, "-engine", "cuda"],
-                   sorted(expect) + path_kernels(bcs))
+                   sorted(expect) + path_kernels("arch", bcs))
     lines = detection_lines(out)
     print(f"[arch] detection: {brief(lines)}; {n_reads / res['wall_s']:.0f} reads/s",
           flush=True)
@@ -590,7 +668,7 @@ def main() -> int:
         for key, r in phase_kernels(kmodels[name], grouped, args.seed, full).items():
             timing[key, name] = r
     print(f"kernel times above on: {card}", flush=True)
-    phase_gate(models, args.seed)
+    phase_gate(dict(models, spacer=kmodels["spacer"]), args.seed)
     print(f"gate times above on: {card}", flush=True)
     del models, kmodels
     torch.cuda.empty_cache()
@@ -604,6 +682,7 @@ def main() -> int:
         for r in (m, small, arch):
             for k in launches:
                 launches[k] += r["launches"][k]
+        print(f"launches on the three main paths: {launches}", flush=True)
         print(f"main path times above on: {card}", flush=True)
         for name, r in (("flagship", m), ("8-plex", small)):
             bcs = sets["flagship" if name == "flagship" else "8"]
@@ -613,14 +692,15 @@ def main() -> int:
                     sets["plate"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if min(launches.values()) <= 0:
-        fail(f"a kernel launched on no main path: {launches}")
+    if min(launches[k] for k in ("bwd", "fwd", "tb", "score")) <= 0:
+        fail(f"a dense kernel launched on no main path: {launches}")
 
+    # no single PyTorch call computes these recurrences: library_ms is null
     rec = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
-         "launches": launches[key],
-         "max_abs_err": timing[key, model]["max_abs_err"],
-         "ms": timing[key, model]["ms"], "plain_ms": timing[key, model]["plain_ms"]}
+         "launches": launches[key], **{f: timing[key, model][f] for f in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None}
         for key, name, rep, model in KERNELS
     ]}
     print(card_line())

@@ -1,8 +1,9 @@
 """tagdust — the demultiplexer CLI of the port.
 
-The flags of ``tagdust_tpu.cli.tagdust`` through the shared
-``tagdust_tpu.config.parse_args``; ``-engine`` takes ``auto``, ``exact``,
-``cuda`` and ``torch``.  ``-profile DIR`` writes a ``torch.profiler`` trace
+The flags of ``tagdust_tpu.cli.tagdust``, parsed by this package's copy of
+``config.parse_args``; ``-engine`` takes ``auto`` (the default: the card,
+and an error without one), ``cuda``, ``torch`` (the plain versions on the
+CPU) and ``exact`` (the host C-parity engine).  ``-profile DIR`` writes a ``torch.profiler`` trace
 of the run (a Chrome trace, ``DIR/trace.json``).
 
     python -m tagdust_tpu_torch.cli.tagdust -1 B:ACAGTG,ACTTGA -2 R:N \
@@ -14,9 +15,8 @@ from __future__ import annotations
 import os
 import sys
 
-from tagdust_tpu.arch import qc_read_structure, read_structure_from_params
-from tagdust_tpu.config import parse_args
-
+from ..arch import qc_read_structure, read_structure_from_params
+from ..config import parse_args
 from ..controller import MessageLog, hmm_controller_multiple
 
 

@@ -1,7 +1,7 @@
 """Multi-file demultiplexing orchestrator of the port.
 
-``tagdust_tpu/controller.py:hmm_controller_multiple`` with its engine seam
-pointed at this package's runner.  The orchestration is the same (per-file
+``tagdust_tpu/controller.py:hmm_controller_multiple`` over this package's
+own modules, with its engine seam pointed at this package's runner.  The orchestration is the same (per-file
 architecture resolution, the barcode-in-one-file check, output-overwrite
 refusal, stats + threshold calibration + model build, the pipelined chunk
 loop with cross-file checks, outcome merging, writing and the end-of-run
@@ -25,14 +25,14 @@ from typing import List, Optional
 
 import numpy as np
 
-from tagdust_tpu.arch import (
+from .arch import (
     ReadStructure,
     build_read_structure,
     qc_read_structure,
     read_structure_from_params,
 )
-from tagdust_tpu.calibrate import estimate_q_threshold
-from tagdust_tpu.constants import (
+from .calibrate import estimate_q_threshold
+from .constants import (
     EXTRACT_FAIL_AMBIGIOUS_BARCODE,
     EXTRACT_FAIL_ARCHITECTURE_MISMATCH,
     EXTRACT_FAIL_BAR_FINGER_NOT_FOUND,
@@ -41,15 +41,18 @@ from tagdust_tpu.constants import (
     EXTRACT_FAIL_READ_TOO_SHORT,
     EXTRACT_SUCCESS,
 )
-from tagdust_tpu.engine.runner import run_rna_dust_batch
-from tagdust_tpu.io.fastq import SeqReader, read_fasta_contaminants
-from tagdust_tpu.io.writer import DemuxWriter, existing_output_files
-from tagdust_tpu.model import init_model_bag
-from tagdust_tpu.namecheck import compare_read_names
-from tagdust_tpu.stats import get_sequence_stats
-
+from .io.fastq import SeqReader, read_fasta_contaminants
+from .io.writer import DemuxWriter, existing_output_files
+from .model import init_model_bag
+from .namecheck import compare_read_names
+from .stats import get_sequence_stats
 from .detect import test_architectures
-from .engine.runner import resolve_engine, run_get_label_batch, run_get_prob
+from .engine.runner import (
+    resolve_engine,
+    run_get_label_batch,
+    run_get_prob,
+    run_rna_dust_batch,
+)
 
 
 class MessageLog:

@@ -11,33 +11,34 @@ twice as the reference does, picks the winner.
 
 On a device kind (``cuda``, ``torch``) the reads form one padded batch and
 each candidate is scored by ``CudaEngine.backward_scores`` (K4, in the step
-mode the engine's gate picks); ``exact`` runs the shared
-``tagdust_tpu.detect.test_architectures`` itself, which scores on the host
-engine without touching JAX once the engine kind is ``exact``.
+mode the engine's gate picks); on ``exact`` the reads are bucketed by length
+and scored by ``ExactEngine.backward_only``, as the JAX package's host
+branch does.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 
-from tagdust_tpu import detect as host_detect
-from tagdust_tpu.arch import (
+from .arch import (
     ReadStructure,
     build_read_structure,
     parse_arch_line,
     qc_read_structure,
     read_arch_file,
 )
-from tagdust_tpu.detect import pretty_print_selected_architecture
-from tagdust_tpu.engine.runner import _pad_tpu_batch, thread_slices
-from tagdust_tpu.io.fastq import SeqReader
-from tagdust_tpu.logsum import logsum
-from tagdust_tpu.model import init_model_bag
-from tagdust_tpu.stats import get_sequence_stats
-
-from .engine.runner import DEVICE_KINDS, get_engine, resolve_engine
+from .engine.exact import ExactEngine
+from .engine.runner import (
+    DEVICE_KINDS,
+    _pad_tpu_batch,
+    get_engine,
+    resolve_engine,
+    thread_slices,
+)
+from .io.fastq import SeqReader
+from .logsum import logsum
+from .model import init_model_bag
+from .stats import get_sequence_stats
 
 NUM_QUERY = 100000
 _F32 = np.float32
@@ -57,6 +58,30 @@ def _device_scores(reads, models, kind: str) -> np.ndarray:
         get_engine(mb, kind).backward_scores(seqs_p, lens_p)[:numseq]
         for mb in models
     ]).astype(np.float32)
+
+
+def _exact_scores(reads, models) -> np.ndarray:
+    """[n_arch, numseq] backward-only scores on the exact engine, the reads
+    bucketed by length (the per-read values do not depend on the
+    bucketing)."""
+    bscores = np.zeros((len(models), len(reads)), dtype=np.float32)
+    engines = [ExactEngine(mb) for mb in models]
+    buckets = {}
+    for idx, r in enumerate(reads):
+        buckets.setdefault(r.len, []).append(idx)
+    for L, idxs in buckets.items():
+        seqs = np.zeros((len(idxs), L + 1), dtype=np.uint8)
+        for bi, idx in enumerate(idxs):
+            seqs[bi, :L] = reads[idx].seq
+        for a, eng in enumerate(engines):
+            bscores[a, idxs] = eng.backward_only(seqs, L)
+    return bscores
+
+
+def pretty_print_selected_architecture(line: str) -> str:
+    """test_architectures.c:292-345."""
+    specs = parse_arch_line(line)
+    return "Using: " + " ".join(f"-{i + 1} {s}" for i, s in enumerate(specs)) + " \n"
 
 
 def _logsum_all(x: np.ndarray):
@@ -92,9 +117,6 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
     """The read structure of the best candidate of ``param.arch_file`` for
     input file ``file_num``; logs the choice and its confidence."""
     kind = resolve_engine(param)
-    if kind not in DEVICE_KINDS:
-        return host_detect.test_architectures(
-            dataclasses.replace(param, engine=kind), file_num, log)
     path = param.infile[file_num]
     entries = read_arch_file(param.arch_file)
     if log:
@@ -119,7 +141,11 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
         reader = SeqReader(path, sam_filter=param.filter)
         reads = reader.read_chunk(NUM_QUERY)
         reader.close()
-        bscores = _device_scores(reads, [mb for _, mb in candidates], kind)
+        models = [mb for _, mb in candidates]
+        if kind in DEVICE_KINDS:
+            bscores = _device_scores(reads, models, kind)
+        else:
+            bscores = _exact_scores(reads, models)
         best, best_score = _pick(bscores, param.num_threads)
         if log:
             log(pretty_print_selected_architecture(candidates[best][0]))

@@ -12,9 +12,9 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
 * ``backward_scores``  — logP_b only, for architecture detection (K4).
 
 The engine runs on ``device``: ``cuda`` launches the hand-written kernels,
-``cpu`` runs the same pipeline through the plain versions.  The kernels run
-in the grouped (block-banded) step mode where the gate
-``grouped_step_mode`` picks it, else in the dense one.
+``cpu`` runs the same pipeline through the plain versions.  Each kernel
+runs in the grouped (block-banded) step mode where the gate ``step_modes``
+picks it for that kernel, else in the dense (non-zero) one.
 """
 
 from __future__ import annotations
@@ -26,60 +26,70 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tagdust_tpu.engine.lattice import compile_lattice
-from tagdust_tpu.model import ModelBag
-
+from ..model import ModelBag
 from . import decided as D
 from . import scan
 from .fused_kernel import FusedScorer
+from .lattice import compile_lattice
 from .tables import grouped_tables_from_lattice, tables_from_lattice
 
-# The grouped step mode engages when its FMAs per read and position (K1 +
-# K2) are at most this share of the dense mode's.  Set from the dense and
-# grouped K1+K2 times at 8, 20, 48 and 96 barcodes on the H100 (PERF.md): a
-# grouped FMA cost 1.2x to 1.6x a dense one there, so grouped wins below a
-# share of 0.61-0.85; 0.6 stays below all four.
-GROUPED_FMA_SHARE = 0.6
+# Per kernel, K1/K4 ("bwd") and K2 ("fwd"): the grouped step mode engages
+# when its work per read and position is at most this many times the dense
+# mode's non-zero entries per base (``step_work``).  Set from the dense and
+# grouped times of each kernel at 8, 20, 48 and 96 barcodes on the H100
+# (PERF.md, gate table): a non-zero entry of the dense step cost as much as
+# 10-12 grouped FMAs in K1 and K4 and 14-18 in K2 there; the smallest of
+# each is the share.  Those libraries need 31-38 grouped FMAs per entry, so
+# every kernel runs dense on them.
+GROUPED_WORK_SHARE = {"bwd": 10.0, "fwd": 14.0}
 
 
-def step_fmas(S: int, K: int, widths, nm: int, NU: int) -> tuple:
-    """(dense, grouped) FMAs per read and position of K1 + K2: the dense
-    products over S (and the K entry columns), against the span blocks,
-    the silent-exit flows (2*nm*S per kernel) and the entry columns from
+def step_work(tables: dict, g: dict) -> dict:
+    """{kernel: (dense, grouped)} work per read and position: the non-zero
+    entries of the step matrix per base (``Ab`` for K1/K4, ``Af`` with its
+    entry columns for K2), against the grouped mode's span-tile FMAs, its
+    silent-exit sums and flows (2*nm*S) and, for K2, the entry columns from
     the NU non-zero rows of Uent."""
-    dense = S * S + S * (S + K)
-    blocks = sum(w * w for w in widths)
-    return dense, 2 * blocks + 4 * nm * S + NU * K
+    S, K = int(tables["S"]), int(tables["K"])
+    blocks = int((g["span"][:, 1].astype(np.int64) ** 2).sum())
+    grouped = blocks + 2 * g["uexit"].shape[0] * S
+    return {"bwd": (np.count_nonzero(tables["Ab"]) / 5, grouped),
+            "fwd": (np.count_nonzero(tables["Af"]) / 5,
+                    grouped + g["urows"].shape[0] * K)}
 
 
-def grouped_step_mode(mb: ModelBag, lat):
-    """The grouped tables of ``mb`` when the grouped step mode is engaged,
-    else None: the counterpart of ``TpuEngine._grouped_decomposition``
-    (tpu.py:508-529), with the gate measured on the H100
-    (``GROUPED_FMA_SHARE``).  TAGDUST_TPU_GROUPED=0/1 forces dense /
-    grouped.  A lattice without a grouped form (a chain wider than 128
-    states, or more than 128 segments) takes the dense mode loudly when
-    grouped was asked for or the lattice spans more than 128 states."""
+def step_modes(mb: ModelBag, lat, tables: dict):
+    """(grouped tables, the kernels that run grouped): the counterpart of
+    ``TpuEngine._grouped_decomposition`` (tpu.py:508-529), chosen per kernel
+    by the work measured on the H100 (``GROUPED_WORK_SHARE``); the grouped
+    tables are None when no kernel takes them.  TAGDUST_TPU_GROUPED=0/1
+    forces dense / grouped for every kernel.  A lattice without a grouped
+    form (a chain wider than 128 states, or more than 128 segments) takes
+    the dense mode, loudly when grouped was asked for."""
     mode = os.environ.get("TAGDUST_TPU_GROUPED", "auto")
     if mode == "0":
-        return None
+        return None, ()
     g = grouped_tables_from_lattice(mb, lat)
     if g is None:
-        if mode == "1" or lat.S > 128:
-            from tagdust_tpu.strict import fallback
+        if mode == "1":
+            from ..strict import fallback
 
             fallback(
                 "grouped-step-kernel",
                 ValueError(f"no block-banded form of the {lat.S}-state lattice"),
                 "a chain wider than 128 states or more than 128 segments; "
-                "scoring on the dense step kernels (quadratic in S)",
+                "scoring on the dense (non-zero) step kernels",
             )
-        return None
+        return None, ()
     if mode == "1":
-        return g
-    dense, grouped = step_fmas(lat.S, lat.Aent.shape[2], g["span"][:, 1],
-                               g["uexit"].shape[0], g["urows"].shape[0])
-    return g if grouped <= GROUPED_FMA_SHARE * dense else None
+        return g, ("bwd", "fwd")
+    if len(g["span"]) < 2:
+        # one span is the whole lattice: its tile is the dense product,
+        # which holds every non-zero entry and its zeros
+        return None, ()
+    kernels = tuple(k for k, (dense, grouped) in step_work(tables, g).items()
+                    if grouped <= GROUPED_WORK_SHARE[k] * dense)
+    return (g if kernels else None), kernels
 
 
 @dataclass
@@ -103,8 +113,10 @@ class CudaEngine:
         self.device = torch.device(device)
         self.lat = compile_lattice(mb)
         self.tables = tables_from_lattice(mb, self.lat)
-        self.grouped = grouped_step_mode(mb, self.lat)
-        self.scorer = FusedScorer(self.tables, self.grouped).to(self.device)
+        # the grouped tables (None if no kernel runs grouped) and the
+        # kernels that run grouped
+        self.grouped, kernels = step_modes(mb, self.lat, self.tables)
+        self.scorer = FusedScorer(self.tables, self.grouped, kernels).to(self.device)
         t = lambda x: torch.as_tensor(x).to(self.device)  # noqa: E731
         self._bg_log = torch.log(t(self.tables["bg"]))
         self._avg_len = t(self.tables["avg_len"])
@@ -129,13 +141,13 @@ class CudaEngine:
         return (Lp + 1) * (self.lat.S + 1) * 4
 
     def required_finger_len(self) -> int:
-        from tagdust_tpu.extract import required_finger_length
+        from ..extract import required_finger_length
 
         return required_finger_length(self.mb.rs)
 
     def _label_tables(self) -> dict:
         """The shared per-label decode tables (extract.label_decode_tables)."""
-        from tagdust_tpu.extract import label_decode_tables
+        from ..extract import label_decode_tables
 
         return label_decode_tables(self.mb, self.mb.rs)
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tagdust_tpu.constants import (
+from ..constants import (
     EXTRACT_FAIL_ARCHITECTURE_MISMATCH,
     EXTRACT_FAIL_BAR_FINGER_NOT_FOUND,
     EXTRACT_FAIL_READ_TOO_SHORT,

@@ -1,17 +1,22 @@
 """``FusedScorer``: the four DP kernels behind one module.
 
 The counterpart of ``tagdust_tpu/engine/pallas_kernel.py:make_fused_scorer``
-in both step modes: dense, or grouped (block-banded) when it is given the
-tables of ``tables.grouped_tables``.  The tables are buffers, so
+in both step modes: dense, or grouped (block-banded) for the kernels named
+in ``grouped_kernels`` when it is given the tables of
+``tables.grouped_tables``; K1/K4 and K2 may take different modes, since both
+keep the stack in the original state order.  The tables are buffers, so
 ``.to(device)`` moves them.  For CUDA tensors each stage launches its
 hand-written kernel (``csrc/fused_dp.cu``) and raises if the launch fails;
-for CPU tensors it runs the plain PyTorch version of ``engine/scan.py`` in
-the same mode.  Nothing falls back from the card to the plain version or
-from one mode to the other.
+for CPU tensors it runs the plain version of ``engine/scan.py`` in the same
+mode.  Nothing falls back from the card to the plain version or from one
+mode to the other.
 
-In the dense mode K1 and K4 read the non-zero entries of ``Ab``
-(``tables.sparse_tables``: buffers ``nz_ptr``, ``nz_idx``, ``nz_val``,
-``nz_out``); K2 and the plain versions read the dense matrices.
+Each kernel reads its tables from one blob (``tables.staged_tables``):
+K2's label-DP tables (``tables.label_tables``, with ``lab_ptr``,
+``lab_idx``, ``ent_state``), which it stages in shared memory, and in the
+dense mode the non-zero tables of its step matrix (``tables.sparse_tables``
+of ``Ab`` for K1 and K4, of ``Af`` for K2), staged where they fit beside
+the carries.  The plain versions read the dense matrices.
 
 ``LAUNCHES`` counts kernel launches per kernel and mode, so a run can show
 that its main path went through the kernels.
@@ -24,16 +29,15 @@ import torch
 from torch import nn
 
 from . import scan
-from .tables import sparse_tables
+from .tables import label_tables, sparse_tables, staged_tables
 
 LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0, "bwd_grouped": 0, "fwd_grouped": 0,
             "score": 0, "score_grouped": 0}
 
-_TABLES = ("Afwd", "Abwd", "Af", "Ab", "end", "Lmap", "lab_ptr", "lab_idx",
-           "ent_state", "tmat")
+# the plain versions' tables; the kernels read theirs from the blobs
+_TABLES = ("Afwd", "Abwd", "end", "Lmap", "ent_state", "tmat")
 _GROUPED = ("span", "tile_f", "tile_b", "span_of", "uexit", "wvec", "seg",
             "urows", "uent", "eent")
-_SPARSE = ("nz_ptr", "nz_idx", "nz_val", "nz_out")
 
 
 def _stream() -> int:
@@ -48,7 +52,8 @@ class FusedScorer(nn.Module):
     """fn(seqs [B, Lp] uint8, lens [B] int32) ->
     (f_log [B], logP_b [B], labels [B, Lp+1] int32, tp [B, K])."""
 
-    def __init__(self, tables: dict, grouped: dict = None):
+    def __init__(self, tables: dict, grouped: dict = None,
+                 grouped_kernels=("bwd", "fwd")):
         super().__init__()
         self.S = int(tables["S"])
         self.K = int(tables["K"])
@@ -57,32 +62,45 @@ class FusedScorer(nn.Module):
         self.begin = int(tables["begin"])
         for name in _TABLES:
             _buffer(self, name, tables[name])
-        self.grouped = grouped is not None
-        self.nm = self.NU = self.nh = 0
+        # the step mode of K1/K4 ("bwd") and of K2 ("fwd")
+        self.modes = {k: grouped is not None and k in grouped_kernels
+                      for k in ("bwd", "fwd")}
+        self.nm = self.NU = 0
         if self.grouped:
             for name in _GROUPED:
                 _buffer(self, "g_" + name, grouped[name])
             self.nm = int(grouped["uexit"].shape[0])
             self.NU = int(grouped["urows"].shape[0])
-        else:
-            sp = sparse_tables(tables["Ab"])
-            self.nh = sp.pop("nz_heavy")
-            for name, x in sp.items():
-                _buffer(self, name, x)
+        label = dict(label_tables(tables["tmat"]),
+                     **{k: tables[k] for k in ("lab_ptr", "lab_idx", "ent_state")})
+        # word offsets of each blob's tables, passed to the kernels by address
+        self.tabs = {}
+        for k, step_matrix, lab in (("bwd", "Ab", None), ("fwd", "Af", label)):
+            step = None if self.modes[k] else sparse_tables(tables[step_matrix])
+            blob, self.tabs[k] = staged_tables(lab, step)
+            _buffer(self, "blob_" + k, blob)
         self._rt = {}
+        self._stage = {}
 
-    def grouped_tables(self) -> dict:
-        """The grouped tables as tensors (the plain versions' argument)."""
-        if not self.grouped:
+    @property
+    def grouped(self) -> bool:
+        """Does any kernel run the grouped step mode?"""
+        return self.modes["bwd"] or self.modes["fwd"]
+
+    def grouped_tables(self, kernel: str = None) -> dict:
+        """The grouped tables as tensors (the plain versions' argument) if
+        ``kernel`` ("bwd" or "fwd"; None: either) runs grouped, else None."""
+        if not (self.modes[kernel] if kernel else self.grouped):
             return None
         return {name: getattr(self, "g_" + name) for name in _GROUPED}
 
     def _key(self, name: str) -> str:
-        return name + "_grouped" if self.grouped else name
+        grouped = self.modes["fwd" if name == "fwd" else "bwd"]
+        return name + "_grouped" if grouped else name
 
     # ---------------- checks and launch geometry ----------------
     def _check(self, **tensors) -> None:
-        dev = self.Ab.device
+        dev = self.end.device
         want = {"seqs": torch.uint8, "lens": torch.int32}
         for name, t in tensors.items():
             if t.device != dev:
@@ -100,43 +118,78 @@ class FusedScorer(nn.Module):
             )
 
     def reads_per_block(self, kernel: str) -> int:
-        """Reads per block of ``kernel`` ("bwd" for K1 and K4, "fwd")."""
+        """Reads per block of ``kernel`` ("bwd" for K1 and K4, "fwd"); also
+        records which of its tables fit the shared memory the carries leave
+        (``staged``)."""
         if kernel not in self._rt:
+            import ctypes
+
             from .build import lib
 
             fwd = kernel == "fwd"
-            Yr = self.Sr if self.grouped else (self.S + self.K + 3) // 4 * 4
-            rt = lib().td_reads_per_block(int(fwd), self.Sr, Yr, max(self.K, 1),
-                                          self.H, self.nm)
+            grouped = self.modes[kernel]
+            Yr = self.Sr if grouped else (self.S + self.K + 3) // 4 * 4
+            tab = self.tabs[kernel]
+            stage = ctypes.c_int(0)
+            rt = lib().td_reads_per_block(
+                int(fwd), self.Sr, Yr, max(self.K, 1), self.H,
+                self.nm if grouped else 0, int(tab[-2]), int(tab[-1]),
+                ctypes.addressof(stage))
             if rt <= 0:
                 raise RuntimeError(
                     f"lattice of {self.S} states does not fit one block's "
                     "shared memory"
                 )
             self._rt[kernel] = rt
+            self._stage[kernel] = stage.value
         return self._rt[kernel]
 
-    def _step_args(self, fwd: bool) -> list:
-        """Step matrix (K2 dense ``Af``, the span tiles when grouped, 0 for
-        dense K1/K4), the grouped-step table pointers (0 if dense), and for
-        K1/K4 the non-zero tables of ``Ab`` (0 if grouped)."""
-        if not self.grouped:
-            args = [self.Af.data_ptr() if fwd else None] + [None] * 5
-            if not fwd:
-                args += [getattr(self, n).data_ptr() for n in _SPARSE]
-            return args
-        tile = self.g_tile_f if fwd else self.g_tile_b
-        return [tile.data_ptr()] + [
-            getattr(self, "g_" + n).data_ptr()
-            for n in ("span", "span_of", "uexit", "wvec", "seg")
-        ] + ([] if fwd else [None] * len(_SPARSE))
+    def staged(self, kernel: str) -> int:
+        """What ``kernel`` stages in shared memory: 0 nothing, 1 K2's
+        label-DP tables, 2 those and the non-zero step tables."""
+        self.reads_per_block(kernel)
+        return self._stage.get(kernel, 0)
+
+    def blocks_per_sm(self, kernel: str, spill: bool = True) -> int:
+        """Blocks of ``kernel`` ("bwd": K1, or K4 without ``spill``; "fwd")
+        one SM holds as this scorer launches it (registers, threads and
+        shared memory counted)."""
+        from .build import lib
+
+        nm, grouped, stage, rt = self._geometry(kernel)
+        return lib().td_blocks_per_sm(
+            int(kernel == "fwd"), int(spill), grouped, stage,
+            scan.path_dtype(self.H).itemsize, self.S, self.Sr, self.K, self.H, nm,
+            self.tabs[kernel].ctypes.data, rt)
+
+    def _step_args(self, kernel: str) -> list:
+        """Step matrix (the span tiles when grouped, else 0), the grouped
+        step's table pointers (0 if dense), the blob and the address of its
+        word offsets."""
+        if self.modes[kernel]:
+            tile = self.g_tile_f if kernel == "fwd" else self.g_tile_b
+            args = [tile.data_ptr()] + [
+                getattr(self, "g_" + n).data_ptr()
+                for n in ("span", "span_of", "uexit", "wvec", "seg")
+            ]
+        else:
+            args = [None] * 6
+        blob = getattr(self, "blob_" + kernel)
+        return args + [blob.data_ptr() if blob.numel() else None,
+                       self.tabs[kernel].ctypes.data]
+
+    def _geometry(self, kernel: str) -> list:
+        """nm, grouped, staged, reads per block."""
+        rt = self.reads_per_block(kernel)
+        grouped = self.modes[kernel]
+        return [self.nm if grouped else 0, int(grouped), self._stage.get(kernel, 0), rt]
 
     # ---------------- K1 ----------------
     def backward(self, seqs: torch.Tensor, lens: torch.Tensor):
         """-> (bstack [Lp+1, B, S], blstack [Lp+1, B], logpb [B])."""
         if not seqs.is_cuda:
             return scan.backward_pass(seqs, lens, self.Abwd, self.end, self.begin,
-                                      grouped=self.grouped_tables())
+                                      grouped=self.grouped_tables("bwd"))
         from .build import check, lib
 
         self._check_batch(seqs, lens)
@@ -145,12 +198,11 @@ class FusedScorer(nn.Module):
         bstack = torch.empty((Lp + 1, B, self.S), dtype=torch.float32, device=dev)
         blstack = torch.empty((Lp + 1, B), dtype=torch.float32, device=dev)
         logpb = torch.empty(B, dtype=torch.float32, device=dev)
-        m, *g = self._step_args(fwd=False)
+        m, *g = self._step_args("bwd")
         err = lib().td_bwd(
             seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
             bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
-            B, Lp, self.S, self.Sr, self.begin, self.nm, self.nh, int(self.grouped),
-            self.reads_per_block("bwd"), _stream(),
+            B, Lp, self.S, self.Sr, self.begin, *self._geometry("bwd"), _stream(),
         )
         check(err, "td_bwd")
         LAUNCHES[self._key("bwd")] += 1
@@ -161,17 +213,17 @@ class FusedScorer(nn.Module):
         """logP_b [B] of K1 without the stack (architecture detection)."""
         if not seqs.is_cuda:
             return scan.backward_scores(seqs, lens, self.Abwd, self.end, self.begin,
-                                        grouped=self.grouped_tables())
+                                        grouped=self.grouped_tables("bwd"))
         from .build import check, lib
 
         self._check_batch(seqs, lens)
         B, Lp = seqs.shape
         logpb = torch.empty(B, dtype=torch.float32, device=seqs.device)
-        m, *g = self._step_args(fwd=False)
+        m, *g = self._step_args("bwd")
         err = lib().td_bwd_score(
             seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
-            logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin, self.nm, self.nh,
-            int(self.grouped), self.reads_per_block("bwd"), _stream(),
+            logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin,
+            *self._geometry("bwd"), _stream(),
         )
         check(err, "td_bwd_score")
         LAUNCHES[self._key("score")] += 1
@@ -184,7 +236,7 @@ class FusedScorer(nn.Module):
             return scan.forward_decode(
                 seqs, lens, self.Afwd, self.end, self.Lmap, self.ent_state,
                 self.tmat, self.begin, bstack, blstack, logpb,
-                grouped=self.grouped_tables(),
+                grouped=self.grouped_tables("fwd"),
             )
         from .build import check, lib
 
@@ -204,18 +256,16 @@ class FusedScorer(nn.Module):
         dpfin = torch.empty((B, self.H), dtype=torch.float32, device=dev)
         flog = torch.empty(B, dtype=torch.float32, device=dev)
         tp = torch.empty((B, self.K), dtype=torch.float32, device=dev)
-        m, *g = self._step_args(fwd=True)
+        m, *g = self._step_args("fwd")
         entry = ([self.g_urows.data_ptr(), self.g_uent.data_ptr(),
-                  self.g_eent.data_ptr()] if self.grouped else [None] * 3)
+                  self.g_eent.data_ptr()] if self.modes["fwd"] else [None] * 3)
+        nm, grouped, staged, rt = self._geometry("fwd")
         err = lib().td_fwd(
-            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
-            self.lab_ptr.data_ptr(), self.lab_idx.data_ptr(),
-            self.ent_state.data_ptr(), self.tmat.data_ptr(), *entry,
+            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g, *entry,
             bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
             path.data_ptr(), dpfin.data_ptr(), flog.data_ptr(), tp.data_ptr(),
-            B, Lp, self.S, self.Sr, self.K, self.H, self.begin, self.nm, self.NU,
-            int(self.grouped), path.element_size(), self.reads_per_block("fwd"),
-            _stream(),
+            B, Lp, self.S, self.Sr, self.K, self.H, self.begin, nm, self.NU,
+            grouped, staged, path.element_size(), rt, _stream(),
         )
         check(err, "td_fwd")
         LAUNCHES[self._key("fwd")] += 1

@@ -1,31 +1,36 @@
 """Engine choice, the calibration scorer and the streaming decided labelling.
 
-The device half of ``tagdust_tpu/engine/runner.py``, ported to
-``CudaEngine``.  The host half is imported from there unchanged: length
-rungs (``_choose_rungs``), batch padding (``_pad_tpu_batch``), the exact
-engine's columnar scorer and the exact ``run_get_prob``.
+The counterpart of ``tagdust_tpu/engine/runner.py``: its device half ported
+to ``CudaEngine``, and its host helpers copied (length rungs
+``_choose_rungs``, batch padding ``_pad_tpu_batch``, ``thread_slices``,
+``run_rna_dust_batch``, and the exact engine's scorers behind
+``get_engine``, ``run_get_prob`` and the columnar labelling).
 
-Engine kinds: ``cuda`` (the hand-written kernels on the card; raises without
-one), ``torch`` (the same pipeline on CPU tensors through the plain
-versions), ``exact`` (the shared C-parity engine) and ``auto`` (``cuda``
-when a card is present, else ``exact``; ``-rtest`` pins ``exact``).
+Engine kinds: ``cuda`` (the hand-written kernels on the card), ``torch``
+(the same pipeline on CPU tensors through the plain versions), ``exact``
+(the C-parity host engine) and ``auto``, the default: ``cuda``, and so it
+raises without a card, as ``-engine cuda`` does; ``-rtest`` pins ``exact``,
+the reference-parity mode.  The CPU runs only when the caller names
+``torch`` or ``exact``.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 from collections import deque
+from typing import Dict, List
 
 import numpy as np
 import torch
 
-from tagdust_tpu.constants import EXTRACT_FAIL_LOW_COMPLEXITY, EXTRACT_SUCCESS
-from tagdust_tpu.engine import runner as host_runner
-from tagdust_tpu.engine.runner import _choose_rungs, _pad_tpu_batch
-from tagdust_tpu.model import ModelBag
-
+from ..constants import EXTRACT_FAIL_LOW_COMPLEXITY, EXTRACT_SUCCESS
+from ..extract import compute_q
+from ..io.fastq import Read
+from ..model import ModelBag
 from .decided import collect_decided
+from .exact import ExactEngine
 
 DEVICE_KINDS = ("cuda", "torch")
 KINDS = ("auto", "exact") + DEVICE_KINDS
@@ -37,19 +42,31 @@ STREAM_STATS = {"windows": 0}
 
 
 def resolve_engine(param) -> str:
-    """Map ``-engine {auto,exact,cuda,torch}`` to a concrete kind."""
+    """Map ``-engine {auto,exact,cuda,torch}`` to a concrete kind: ``auto``
+    is ``cuda`` (``exact`` under ``-rtest``); ``cuda`` raises without a
+    card."""
     eng = getattr(param, "engine", "auto")
     if eng not in KINDS:
         raise ValueError(
             f"-engine {eng}: this package takes one of {', '.join(KINDS)}"
         )
-    if eng == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("-engine cuda: no CUDA device is available")
     if eng == "auto":
-        if getattr(param, "rtest", False) or not torch.cuda.is_available():
-            return "exact"
-        return "cuda"
+        eng = "exact" if getattr(param, "rtest", False) else "cuda"
+    if eng == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"-engine {getattr(param, 'engine', 'auto')}: no CUDA device is "
+            "available (-engine torch or exact runs on the CPU)"
+        )
     return eng
+
+
+def thread_slices(numseq: int, num_threads: int) -> List[tuple]:
+    """barcode_hmm.c:1911-1922."""
+    interval = int(float(numseq) / float(num_threads))
+    slices = [(t * interval, t * interval + interval) for t in range(num_threads)]
+    s, _ = slices[-1]
+    slices[-1] = (s, numseq)
+    return slices
 
 
 def get_engine(mb: ModelBag, kind: str):
@@ -66,15 +83,103 @@ def get_engine(mb: ModelBag, kind: str):
 
             _ENGINE_CACHE[key] = CudaEngine(mb, "cuda" if kind == "cuda" else "cpu")
         else:
-            _ENGINE_CACHE[key] = host_runner.get_engine(mb, "exact")
+            _ENGINE_CACHE[key] = ExactEngine(mb)
     return _ENGINE_CACHE[key]
+
+
+def _pad_tpu_batch(seqs: np.ndarray, lens_arr: np.ndarray):
+    """Pad [B, L] inputs: length bucketed to multiples of 32, batch to
+    powers of two up to 32k then 32k granules.  Pad rows are copies of read
+    0 (zero rows can be impossible reads -> a deliberate NaN Q)."""
+    B, L = seqs.shape
+    Lpad = max(((L + 31) // 32) * 32, 32)
+    if B <= 32768:
+        Bpad = 1 << max(8, (B - 1).bit_length())
+    else:
+        Bpad = ((B + 32767) // 32768) * 32768
+    out = np.zeros((Bpad, Lpad), dtype=np.uint8)
+    out[:B, :L] = seqs
+    lens = np.ones(Bpad, dtype=np.int32)
+    lens[:B] = lens_arr
+    if Bpad > B:
+        out[B:] = out[0]
+        lens[B:] = lens[0]
+    return out, lens
+
+
+# padded-length ladder of the device scorer's calibration buckets
+_LEN_LADDER = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048,
+               3072, 4096)
+
+
+def _choose_rungs(lens: np.ndarray) -> list:
+    """Pick <= TAGDUST_TPU_LEN_BUCKETS ladder rungs covering every length,
+    minimizing sum(padded length): the DP compute is linear in the padded
+    length.  The rung covering the max length is always included."""
+    Lmax = int(lens.max(initial=1))
+    top = int(np.searchsorted(_LEN_LADDER, max(Lmax, 1)))
+    if top >= len(_LEN_LADDER):
+        return [((Lmax + 31) // 32) * 32]
+    cands = [lp for lp in _LEN_LADDER[: top + 1] if lp >= int(lens.min())]
+    # covering invariant: _LEN_LADDER[top] >= Lmax >= lens.min(), so the
+    # top rung always survives the filter
+    assert cands, "length ladder must cover lens.min()"
+    max_b = max(1, int(os.environ.get("TAGDUST_TPU_LEN_BUCKETS", "3")))
+    if len(cands) <= max_b:
+        return cands
+    # exact padded-base cost per candidate subset via per-rung counts
+    idx = np.searchsorted(np.asarray(cands), lens)
+    cnt = np.bincount(idx, minlength=len(cands)).astype(np.int64)
+    best, best_cost = None, None
+    last = len(cands) - 1
+    for sub in itertools.combinations(range(last), max_b - 1):
+        chosen = list(sub) + [last]
+        cost = 0
+        j = 0
+        for i in range(len(cands)):
+            while chosen[j] < i:
+                j += 1
+            cost += int(cnt[i]) * cands[chosen[j]]
+        if best_cost is None or cost < best_cost:
+            best, best_cost = chosen, cost
+    return [cands[i] for i in best]
+
+
+def _build_batches(reads: List[Read]):
+    """Group read indices by length; build [B, L+1] buffers with the
+    position after the read (terminator 'A'), as the backward pass reads
+    it."""
+    buckets: Dict[int, List[int]] = {}
+    for idx, r in enumerate(reads):
+        buckets.setdefault(r.len, []).append(idx)
+    out = []
+    for L, idxs in buckets.items():
+        seqs = np.zeros((len(idxs), L + 1), dtype=np.uint8)
+        for bi, idx in enumerate(idxs):
+            seqs[bi, : reads[idx].len] = reads[idx].seq
+        out.append((L, idxs, seqs))
+    return out
+
+
+def _run_get_prob_exact(mb: ModelBag, seq_list) -> np.ndarray:
+    """Q per raw sequence on the exact engine, bucketed by length."""
+    reads = [Read(seq=s) for s in seq_list]
+    eng = get_engine(mb, "exact")
+    mapq = np.empty(len(reads), dtype=np.float32)
+    for L, idxs, seqs in _build_batches(reads):
+        if L <= 0:
+            mapq[idxs] = np.nan
+            continue
+        res = eng.run_batch(seqs, L)
+        mapq[idxs] = compute_q(res.f_score, res.r_score, res.bar_prob)
+    return mapq
 
 
 def run_get_prob(mb: ModelBag, seq_list, engine_kind: str = "exact") -> np.ndarray:
     """MODE_GET_PROB for calibration: Q per raw sequence, on the engine
     production scores with."""
     if engine_kind not in DEVICE_KINDS:
-        return host_runner.run_get_prob(mb, seq_list, engine_kind="exact")
+        return _run_get_prob_exact(mb, seq_list)
     B = len(seq_list)
     if not B:
         return np.zeros(0, dtype=np.float32)
@@ -97,11 +202,55 @@ def run_get_prob(mb: ModelBag, seq_list, engine_kind: str = "exact") -> np.ndarr
     return mapq
 
 
-def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
-    """One-shot scoring of a columnar ReadBatch on the device engine; fills
-    batch.mapq and returns the [B, Lpad+1] label matrix."""
-    from tagdust_tpu.io.batch import padded_matrix
+def _score_batch_exact(mb, batch, matchstart, matchend):
+    """Score a columnar ReadBatch on the exact engine, in batches of one
+    length gathered from the arena; fills batch.mapq and returns the
+    [B, Lmax+1] label matrix."""
+    B = batch.B
+    full_lens = batch.lens
+    sub = matchstart != -1 or matchend != -1
+    eng = get_engine(mb, "exact")
+    dec_lens = (
+        np.full(B, matchend - matchstart, dtype=np.int64) if sub else full_lens
+    )
+    Lmax = int(dec_lens.max(initial=0))
+    labels_out = np.zeros((B, Lmax + 1), dtype=np.int32)
+    cap = max(batch.seq_arena.shape[0] - 1, 0)
+    order = np.argsort(dec_lens, kind="stable")
+    uls, starts = np.unique(dec_lens[order], return_index=True)
+    bounds = list(starts) + [B]
+    for k, L in enumerate(uls):
+        idxs = order[bounds[k] : bounds[k + 1]]
+        L = int(L)
+        if L <= 0:
+            batch.mapq[idxs] = float("nan")
+            continue
+        # [Bb, L+1] window incl. the position after the subsequence
+        # (terminator or next char), as read by the backward pass
+        base = batch.seq_off[:-1][idxs] + (matchstart if sub else 0)
+        if sub:
+            vlen = np.clip(
+                np.minimum(full_lens[idxs], matchend + 1) - matchstart, 0, None
+            )
+        else:
+            vlen = full_lens[idxs]
+        pos = np.arange(L + 1, dtype=np.int64)[None, :]
+        seqs_b = batch.seq_arena[np.minimum(base[:, None] + pos, cap)].copy()
+        seqs_b[pos >= vlen[:, None]] = 0
+        res = eng.run_batch(seqs_b, L)
+        q = compute_q(res.f_score, res.r_score, res.bar_prob)
+        batch.mapq[idxs] = q.astype(np.float64)
+        labels_out[idxs, : L + 1] = res.labels
+    return labels_out
 
+
+def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
+    """One-shot scoring of a columnar ReadBatch; fills batch.mapq and
+    returns the [B, Lpad+1] label matrix."""
+    from ..io.batch import padded_matrix
+
+    if kind not in DEVICE_KINDS:
+        return _score_batch_exact(mb, batch, matchstart, matchend)
     B = batch.B
     full_lens = batch.lens
     if matchstart != -1 or matchend != -1:
@@ -128,8 +277,8 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     up to DEPTH in flight; the host applies window k's decisions while the
     device scores k+1..k+DEPTH.  Returns False when the decided-mode gate is
     off or the chunk fits one window (the caller labels it one-shot)."""
-    from tagdust_tpu.extract import apply_device_decisions
-    from tagdust_tpu.io.batch import padded_matrix
+    from ..extract import apply_device_decisions
+    from ..io.batch import padded_matrix
 
     B = batch.B
     if param.matchstart != -1 or param.matchend != -1:
@@ -222,17 +371,14 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
 def run_get_label_batch(mb, rs, batch, param, confidence_threshold,
                         contaminants=None) -> None:
     """MODE_GET_LABEL over a columnar ReadBatch (the production hot path)."""
-    from tagdust_tpu.extract import extract_batch_columnar
-    from tagdust_tpu.filters import dust_batch_columnar, match_to_reference_columnar
+    from ..extract import extract_batch_columnar
+    from ..filters import dust_batch_columnar, match_to_reference_columnar
 
     kind = resolve_engine(param)
-    if kind not in DEVICE_KINDS:
-        host_runner.run_get_label_batch(
-            mb, rs, batch, param, confidence_threshold, contaminants
-        )
-        return
     batch.dust_device = None
-    if not _label_streaming(mb, rs, batch, param, confidence_threshold, kind):
+    if kind not in DEVICE_KINDS or not _label_streaming(
+        mb, rs, batch, param, confidence_threshold, kind
+    ):
         labels = _score_batch_columnar(
             mb, batch, param.matchstart, param.matchend, kind
         )
@@ -256,3 +402,17 @@ def run_get_label_batch(mb, rs, batch, param, confidence_threshold,
                 batch.read_type[score > param.dust] = EXTRACT_FAIL_LOW_COMPLEXITY
         else:
             dust_batch_columnar(batch, param.dust)
+
+
+def run_rna_dust_batch(batch, param, contaminants=None) -> None:
+    """Pure R:N architectures over a columnar ReadBatch: no model to score,
+    only the filters (host Myers, host DUST)."""
+    from ..filters import dust_batch_columnar, match_to_reference_columnar
+
+    batch.read_type[:] = EXTRACT_SUCCESS
+    if contaminants is not None:
+        match_to_reference_columnar(
+            batch, contaminants, param.filter_error, device=False
+        )
+    if param.dust:
+        dust_batch_columnar(batch, param.dust)

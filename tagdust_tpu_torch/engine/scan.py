@@ -23,6 +23,12 @@ computes it.  Grouped (``grouped=``, the tables of
 span of the block diagonal, plus the silent-exit flows, and the entry
 columns through ``(v[:, urows] @ Uent[urows]) * Eent[base]``.
 All products run in full float32: TF32 is switched off in each call.
+
+Two more plain versions mirror what the kernels' dense mode does instead of
+the dense products: ``sparse_step``, the step over the non-zero tables of
+``tables.sparse_tables`` as one chain per (read, output) in ascending input
+order, and ``sparse_label_dp``, K2's label DP over the non-zero entries of
+each column of ``tmat`` (``tables.label_tables``).
 """
 
 from __future__ import annotations
@@ -66,6 +72,76 @@ def path_dtype(H: int) -> torch.dtype:
 
 def _dense_step(M):
     return lambda x, oh: _expand(x, oh) @ M
+
+
+def sparse_step(x, oh, nz_ptr, nz_idx, nz_val):
+    """The dense step ``x -> x @ M[base]`` from the non-zero tables of ``M``
+    (``tables.sparse_tables``; rows with code >= 5 give 0): for each (read,
+    output), one chain over the output's inputs in ascending order, as the
+    kernels run it, with a multiply and an add where the kernels fuse them.
+    Shorter chains are padded with zero terms, x * 0 + acc == acc for
+    finite x >= 0, so the result is the chain over all inputs, zeros
+    included."""
+    _enter(x)
+    B = x.shape[0]
+    nout = nz_ptr.shape[1] - 1
+    ptr = nz_ptr.long()
+    out = torch.zeros((B, nout), dtype=torch.float32, device=x.device)
+    last = max(nz_idx.numel() - 1, 0)
+    for c in range(5):
+        rows = torch.nonzero(oh[:, c] > 0)[:, 0]
+        counts = ptr[c, 1:] - ptr[c, :-1]
+        if rows.numel() == 0 or int(counts.max()) == 0:
+            continue
+        xr = x[rows]
+        acc = torch.zeros((rows.numel(), nout), dtype=torch.float32, device=x.device)
+        for k in range(int(counts.max())):
+            has = k < counts
+            e = torch.clamp(ptr[c, :-1] + k, max=last)
+            val = torch.where(has, nz_val[e], torch.zeros_like(nz_val[e]))
+            acc = acc + xr[:, nz_idx[e].long()] * val
+        out[rows] = acc
+    return out
+
+
+def label_dp(dp, tmat):
+    """K2's label DP step over every source: ``(mx, mv)`` [B, H] with
+    ``mx[j] = max_c dp[c] * tmat[c, j]`` and ``mv`` its first maximal
+    source, then the diagonal override (``dp[j] * tmat[j, j] == mx[j]``
+    takes ``j``)."""
+    H = tmat.shape[0]
+    scores = dp[:, :, None] * tmat[None, :, :]
+    mx = scores.amax(dim=1)
+    mv = torch.argmax(scores, dim=1)
+    jidx = torch.arange(H, device=dp.device).expand(dp.shape[0], H)
+    return mx, torch.where(dp * torch.diagonal(tmat)[None, :] == mx, jidx, mv)
+
+
+def sparse_label_dp(dp, tm_ptr, tm_src, tm_val, tm_diag):
+    """K2's label DP step over the non-zero entries of each column of
+    ``tmat`` (``tables.label_tables``): ``(mx, mv)`` [B, H] with ``mx[j] =
+    max_c dp[c] * tmat[c, j]`` and ``mv`` its source, the first maximal one,
+    then the diagonal override.  The sources left out give 0 (dp >= 0), as
+    the full loop's source 0 does, so a label whose listed candidates are
+    all <= 0, or that has none, takes (0, 0)."""
+    B, H = dp.shape
+    ptr = tm_ptr.long()
+    counts = ptr[1:] - ptr[:-1]
+    mx = torch.full((B, H), -1.0, dtype=torch.float32, device=dp.device)
+    mv = torch.full((B, H), -1, dtype=torch.long, device=dp.device)
+    last = max(tm_src.numel() - 1, 0)
+    for k in range(int(counts.max())):
+        e = torch.clamp(ptr[:-1] + k, max=last)
+        src = tm_src[e].long()
+        cand = dp[:, src] * tm_val[e]
+        better = (k < counts) & (cand > mx)
+        mx = torch.where(better, cand, mx)
+        mv = torch.where(better, src.expand(B, H), mv)
+    none = mx <= 0
+    mx = torch.where(none, torch.zeros_like(mx), mx)
+    mv = torch.where(none, torch.zeros_like(mv), mv)
+    jidx = torch.arange(H, device=dp.device).expand(B, H)
+    return mx, torch.where(dp * tm_diag == mx, jidx, mv)
 
 
 def _grouped_step(g: dict, fwd: bool):
@@ -157,7 +233,6 @@ def forward_decode(seqs, lens, Afwd, end, Lmap, ent_state, tmat, begin: int,
             return blocks(v, oh), ve
     oh = _onehot(seqs)
     Lm = Lmap[:, :H]
-    tdiag = torch.diagonal(tmat)[None, :]
     jidx = torch.arange(H, device=dev)[None, :].expand(B, H)
     ent = ent_state.long()
     v = torch.zeros((B, S), dtype=torch.float32, device=dev)
@@ -178,11 +253,7 @@ def forward_decode(seqs, lens, Afwd, end, Lmap, ent_state, tmat, begin: int,
         v = torch.where(act[:, None], vn2, v)
         fls = torch.where(act, fls + lm, fls)
         tp = torch.where(act[:, None], tpn, tp)
-        # label DP: first maximal source, then the diagonal override
-        scores = dp[:, :, None] * tmat[None, :, :]
-        mx = scores.amax(dim=1)
-        mv = torch.argmax(scores, dim=1)
-        mv = torch.where(dp * tdiag == mx, jidx, mv)
+        mx, mv = label_dp(dp, tmat)
         dp = torch.where(act[:, None], plab + mx, dp)
         path[k] = torch.where(act[:, None], mv, jidx).to(path.dtype)
     f_log = torch.log(torch.clamp_min(v @ end, 1e-38)) + fls

@@ -1,9 +1,10 @@
-"""Device tables of the port, built from the shared closure lattice.
+"""Device tables of the port, built from the closure lattice.
 
 Two entry points return the same dict of numpy arrays:
 
-* ``tables_from_lattice(mb, lat)`` starts from the model bag and the shared
-  ``tagdust_tpu.engine.lattice.compile_lattice`` output and builds the arrays
+* ``tables_from_lattice(mb, lat)`` starts from the model bag and the
+  ``engine.lattice.compile_lattice`` output (this package's copy of the
+  JAX package's closure compiler) and builds the arrays
   ``TpuEngine.__init__`` builds (Lmap, ent_state, ent_sel, Afwd, Abwd, ...);
 * ``tables_from_numpy(dev)`` starts from those arrays (the JAX engine's
   ``_dev`` dict, converted to numpy) and derives the kernel layouts.
@@ -19,9 +20,12 @@ So both packages provably start from identical parameters.  Kernel layouts:
 * ``Sr`` is S rounded up to 4; the pad rows are zero so the kernels can read
   the carry four states at a time.
 
-The dense backward step (K1, K4) walks only the non-zero entries of ``Ab``,
-listed per base and output state by ``sparse_tables``.  The grouped
-(block-banded) step mode has its own tables, built from the shared
+The dense step of every kernel walks only the non-zero entries of its step
+matrix (``Ab`` for K1 and K4, ``Af`` for K2), listed per base and output
+state by ``sparse_tables``; K2's label DP walks the non-zero entries of each
+column of ``tmat`` (``label_tables``).  ``staged_tables`` packs the tables a
+kernel copies into shared memory into one blob.  The grouped (block-banded)
+step mode has its own tables, built from
 ``lattice.grouped_step_decomposition`` by ``grouped_tables``.
 """
 
@@ -29,19 +33,21 @@ from __future__ import annotations
 
 import numpy as np
 
-from tagdust_tpu.engine.lattice import (
-    Lattice,
-    compile_lattice,
-    grouped_step_decomposition,
-)
-from tagdust_tpu.model import ModelBag
+from ..model import ModelBag
+from .lattice import Lattice, compile_lattice, grouped_step_decomposition
 
 # the JAX kernel packs one silent-exit column per segment into one 128-lane
 # tile (pallas_kernel.py:128-148); the port keeps the same bound
 MAX_SEGMENTS = 128
-# an output of the sparse backward step with more inputs than this under
-# some base goes to a warp of its own (sparse_tables)
+# an output of the sparse step with more inputs than this under some base
+# goes to a warp of its own (sparse_tables)
 HEAVY_INPUTS = 32
+# the tables a kernel stages in shared memory, in the order of the word
+# offsets of ``staged_tables`` (struct Staged of csrc/fused_dp.cu): K2's
+# label-DP part, then the sparse step's part
+LABEL_TABLES = ("tm_ptr", "tm_src", "tm_val", "tm_diag", "lab_ptr", "lab_idx",
+                "ent_state")
+STEP_TABLES = ("nz_ptr", "nz_idx", "nz_val", "nz_out")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -134,9 +140,10 @@ def tables_from_numpy(dev: dict) -> dict:
 
 
 def sparse_tables(Ab: np.ndarray) -> dict:
-    """The non-zero entries of the dense backward step ``Ab`` [5, Sr, S]
-    (``Ab[c, t, s] = A[c][s, t]``: input ``t``, output ``s``), per base and
-    output state:
+    """The non-zero entries of a dense step matrix [5, Sr, S]: input, then
+    output (``Ab[c, t, s] = A[c][s, t]`` of K1 and K4, with S outputs;
+    ``Af`` of K2, with S + K outputs, the states then the barcode entry
+    columns), per base and output:
 
     * ``nz_ptr`` [5, S+1] int32: the inputs of output ``s`` under base ``c``
       are entries ``nz_ptr[c, s]`` to ``nz_ptr[c, s+1]`` of the two arrays
@@ -144,8 +151,9 @@ def sparse_tables(Ab: np.ndarray) -> dict:
     * ``nz_idx`` [nnz] int32: the input states, ascending within an output;
     * ``nz_val`` [nnz] f32: ``Ab[c, t, s]``, copied;
     * ``nz_out`` [S] int32: the outputs, ascending, those with more than
-      ``HEAVY_INPUTS`` inputs under some base (the silent states that fan
-      out to every barcode) moved to the end;
+      ``HEAVY_INPUTS`` inputs under some base (K1: the silent states that
+      fan out to every barcode; K2: the states that collect from every
+      barcode) moved to the end;
     * ``nz_heavy``: the number of those heavy outputs.
 
     The kernel walks an output's inputs in ascending order, the order of
@@ -171,6 +179,66 @@ def sparse_tables(Ab: np.ndarray) -> dict:
                                   np.nonzero(heavy)[0]]).astype(np.int32),
         "nz_heavy": int(heavy.sum()),
     }
+
+
+def label_tables(tmat: np.ndarray) -> dict:
+    """The non-zero entries of each column of the label transition matrix
+    ``tmat`` [H, H], K2's label DP ``ndp[j] = plab[j] + max_c dp[c] *
+    tmat[c, j]``:
+
+    * ``tm_ptr`` [H+1] int32: the sources of label ``j`` are entries
+      ``tm_ptr[j]`` to ``tm_ptr[j+1]`` of the two arrays below;
+    * ``tm_src`` [nnz] int32: the sources ``c``, ascending within a label;
+    * ``tm_val`` [nnz] f32: ``tmat[c, j]``, copied;
+    * ``tm_diag`` [H] f32: the diagonal, for the DP's diagonal override.
+
+    A source left out has ``tmat[c, j] == 0``: with dp finite and >= 0 its
+    candidate is exactly 0, which the full loop's first source (c = 0)
+    already offers, so the DP takes (0, source 0) when no listed candidate
+    is above 0.  That needs every candidate >= 0: ``tmat`` must be finite
+    and non-negative (a 0/1 matrix from the lattice)."""
+    tmat = np.asarray(tmat, dtype=np.float32)
+    if not (np.isfinite(tmat).all() and (tmat >= 0).all()):
+        raise ValueError("the label DP needs a finite, non-negative tmatrix")
+    H = tmat.shape[0]
+    # C order of [j, c]: by label, then ascending source
+    j, c = np.nonzero(tmat.T)
+    ptr = np.zeros(H + 1, dtype=np.int32)
+    ptr[1:] = np.cumsum(np.bincount(j, minlength=H))
+    return {
+        "tm_ptr": ptr,
+        "tm_src": c.astype(np.int32),
+        "tm_val": np.ascontiguousarray(tmat[c, j]),
+        "tm_diag": np.ascontiguousarray(np.diagonal(tmat)),
+    }
+
+
+def staged_tables(label: dict = None, step: dict = None):
+    """(blob, tab): the tables a kernel copies into shared memory, packed
+    into one int32 blob (f32 tables by their bits), and ``tab``, int32: the
+    word offset of each table of ``LABEL_TABLES`` then ``STEP_TABLES`` in
+    the blob (0 where absent), the number of heavy outputs of the step,
+    and the words of the label part and of the step part.  Every table
+    starts on 16 bytes and each part is a multiple of 16 bytes, so one bulk
+    copy moves the label part, or both parts, into shared memory."""
+    words, tab, sizes = [], [], []
+    n = 0
+    for names, part in ((LABEL_TABLES, label), (STEP_TABLES, step)):
+        start = n
+        for name in names:
+            if part is None:
+                tab.append(0)
+                continue
+            a = np.ascontiguousarray(part[name]).reshape(-1)
+            a = a.view(np.int32) if a.dtype == np.float32 else a.astype(np.int32)
+            pad = -a.size % 4
+            tab.append(n)
+            words.append(np.concatenate([a, np.zeros(pad, np.int32)]))
+            n += a.size + pad
+        sizes.append(n - start)
+    nh = int(step["nz_heavy"]) if step is not None else 0
+    blob = np.concatenate(words) if words else np.zeros(0, np.int32)
+    return blob, np.asarray(tab + [nh] + sizes, dtype=np.int32)
 
 
 def grouped_tables(dec: dict, lat: Lattice) -> dict:

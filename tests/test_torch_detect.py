@@ -21,13 +21,14 @@ from tagdust_tpu.engine.exact import ExactEngine
 from tagdust_tpu.model import init_model_bag
 from tagdust_tpu.stats import SequenceStats
 
+from tagdust_tpu_torch.config import parse_args as port_parse_args
 from tagdust_tpu_torch.engine import fused_kernel, runner
 from tagdust_tpu_torch.engine.cuda import CudaEngine
 
 BARS = ["ACGTAC", "TGCATG"]
 BIG = ["".join(p) for p in itertools.product("ACGT", repeat=6)][7::83][:48]
-# candidate sets: the fixture of tests/test_detect_device.py:59, and one in
-# which a 48-barcode candidate (591 states) takes the grouped step mode
+# candidate sets: the fixture of tests/test_detect_device.py:59, and one
+# with a 48-barcode candidate (591 states), scored in the grouped step mode
 CANDIDATES = {
     "pair": ["tagdust -1 B:ACGTAC,TGCATG -2 R:N", "tagdust -1 R:N"],
     "grouped": [f"tagdust -1 B:{','.join(BIG)} -2 R:N",
@@ -62,9 +63,9 @@ class _Log(list):
         return True
 
 
-def _detect(fn, fq, arch, engine, out):
+def _detect(fn, fq, arch, engine, out, parse=parse_args):
     lg = _Log()
-    param = parse_args([str(fq), "-arch", str(arch), "-engine", engine, "-Q", "10",
+    param = parse([str(fq), "-arch", str(arch), "-engine", engine, "-Q", "10",
                         "-o", str(out)])
     rs = fn(param, 0, log=lg)
     lines = [m for m in lg if "Confidence" in m or m.startswith("Using")]
@@ -83,19 +84,25 @@ def test_detection_matches_jax(tmp_path, monkeypatch, cands):
     arch = tmp_path / "arch.txt"
     arch.write_text("".join(line + "\n" for line in CANDIDATES[cands]))
     before = dict(fused_kernel.LAUNCHES)
-    port = _detect(port_detect, fq, arch, "torch", tmp_path / "o_port")
+    if cands == "grouped":
+        # every candidate scored in the grouped step mode (the gate picks
+        # the dense one for all of them)
+        monkeypatch.setenv("TAGDUST_TPU_GROUPED", "1")
+    port = _detect(port_detect, fq, arch, "torch", tmp_path / "o_port",
+                   port_parse_args)
+    monkeypatch.delenv("TAGDUST_TPU_GROUPED", raising=False)
     assert fused_kernel.LAUNCHES == before
     for eng in ("tpu", "exact"):
         assert _detect(jax_detect, fq, arch, eng, tmp_path / f"o_{eng}") == port, eng
-    # -engine exact through the port runs the shared host detection
-    assert _detect(port_detect, fq, arch, "exact", tmp_path / "o_px") == port
+    # -engine exact through the port runs its copy of the host detection
+    assert _detect(port_detect, fq, arch, "exact", tmp_path / "o_px",
+                   port_parse_args) == port
     assert port[0][0] == "B" and port[1][0][:2] == BARS
     assert len(port[2]) == 2 and port[2][1].endswith("Confidence.\n")
     # the 48-barcode candidate was scored in the grouped step mode
-    modes = {e.lat.S: e.scorer.grouped for e in runner._ENGINE_CACHE.values()
-             if isinstance(e, CudaEngine)}
     if cands == "grouped":
-        assert modes[591] is True
+        assert any(e.lat.S == 591 and e.scorer.modes == {"bwd": True, "fwd": True}
+                   for e in runner._ENGINE_CACHE.values() if isinstance(e, CudaEngine))
 
 
 @pytest.mark.parametrize("specs", [

@@ -127,15 +127,17 @@ def test_label_dp_ties_follow_the_pallas_rule():
 
 
 def test_engine_cuda_raises_without_card(monkeypatch):
-    from tagdust_tpu.config import parse_args
-
+    """``-engine cuda`` and the default ``auto`` need the card; ``-rtest``
+    pins the exact engine; ``torch`` and ``exact`` run on the CPU."""
+    from tagdust_tpu_torch.config import parse_args
     from tagdust_tpu_torch.engine.runner import resolve_engine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    p = parse_args(["-1", "R:N", "-engine", "cuda"])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        resolve_engine(p)
-    assert resolve_engine(parse_args(["-1", "R:N"])) == "exact"
+    for args in (["-engine", "cuda"], [], ["-engine", "auto"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_engine(parse_args(["-1", "R:N", *args]))
+    assert resolve_engine(parse_args(["-1", "R:N", "-rtest"])) == "exact"
+    assert resolve_engine(parse_args(["-1", "R:N", "-engine", "exact"])) == "exact"
     assert resolve_engine(parse_args(["-1", "R:N", "-engine", "torch"])) == "torch"
     with pytest.raises(ValueError):
         resolve_engine(parse_args(["-1", "R:N", "-engine", "tpu"]))

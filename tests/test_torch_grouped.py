@@ -170,29 +170,41 @@ def test_grouped_plain_matches_pallas_and_scan_48_barcodes(monkeypatch):
 
 
 def test_grouped_gate(monkeypatch):
-    """Auto mode: grouped for the 48-barcode and flagship libraries, dense
-    for 8 barcodes (one span) and R:N; TAGDUST_TPU_GROUPED forces both
-    ways (the counterpart of test_grouped_gate)."""
+    """Auto mode: every kernel dense (the non-zero step) for 48, 20 and 8
+    barcodes and R:N, where the grouped step's work is 31-38 times the
+    non-zero entries, over ``GROUPED_WORK_SHARE``; the gate decides per
+    kernel, so a share between the two kernels' ratios splits them;
+    TAGDUST_TPU_GROUPED forces both ways (the counterpart of
+    test_grouped_gate)."""
+    from tagdust_tpu_torch.engine import cuda
+
     monkeypatch.delenv("TAGDUST_TPU_GROUPED", raising=False)
     big = _mk_model([f"B:{','.join(_barcodes(48))}", "R:N"])
     small = _mk_model([f"B:{','.join(_barcodes(8))}", "R:N"])
     flagship = _mk_model([f"B:{','.join(load_barcodes())}", "R:N"])
-    assert CudaEngine(big, "cpu").grouped is not None
-    assert CudaEngine(flagship, "cpu").grouped is not None
-    assert CudaEngine(small, "cpu").grouped is None
-    assert CudaEngine(_mk_model(["R:N"]), "cpu").grouped is None
+    for mb in (big, flagship, small, _mk_model(["R:N"])):
+        eng = CudaEngine(mb, "cpu")
+        assert eng.grouped is None and eng.scorer.modes == {"bwd": False, "fwd": False}
+    eng = CudaEngine(big, "cpu")
+    work = cuda.step_work(eng.tables, grouped_tables_from_lattice(big, eng.lat))
+    ratio = {k: g / d for k, (d, g) in work.items()}
+    assert all(30 < r < 40 for r in ratio.values()), ratio
+    assert ratio["fwd"] < ratio["bwd"]
+    monkeypatch.setitem(cuda.GROUPED_WORK_SHARE, "fwd", (ratio["fwd"] + ratio["bwd"]) / 2)
+    eng = CudaEngine(big, "cpu")
+    assert eng.grouped is not None and eng.scorer.modes == {"bwd": False, "fwd": True}
     monkeypatch.setenv("TAGDUST_TPU_GROUPED", "0")
     assert CudaEngine(big, "cpu").grouped is None
     assert not CudaEngine(big, "cpu").scorer.grouped
     monkeypatch.setenv("TAGDUST_TPU_GROUPED", "1")
     eng = CudaEngine(small, "cpu")
-    assert eng.grouped is not None and eng.scorer.grouped
+    assert eng.grouped is not None and eng.scorer.modes == {"bwd": True, "fwd": True}
 
 
 def test_no_grouped_form_falls_back_loudly(monkeypatch, capsys):
     """A chain wider than 128 states has no grouped form: the engine takes
     the dense mode with a warning, and raises under TAGDUST_TPU_STRICT=1."""
-    from tagdust_tpu import strict
+    from tagdust_tpu_torch import strict
 
     mb = _mk_model(["S:" + "ACGT" * 17, "R:N"], avg=90, mx=96)
     assert grouped_step_decomposition(mb, compile_lattice(mb)) is None

@@ -30,6 +30,7 @@ from tagdust_tpu_torch.engine.tables import (
     HEAVY_INPUTS,
     grouped_tables_from_lattice,
     sparse_tables,
+    staged_tables,
     tables_from_lattice,
 )
 from tagdust_tpu_torch.flagship import generate_barcodes, load_barcodes
@@ -219,23 +220,31 @@ def test_sparse_tables_of_the_pallas_step_matrix():
 
 
 def test_fused_scorer_holds_the_tables_in_dense_mode():
-    """Dense: the tables are buffers beside ``Ab`` and K1/K4 get their
-    pointers (and no step matrix); grouped: no tables, K1/K4 get the span
-    tiles."""
+    """Dense: K1/K4's blob holds the tables of ``Ab`` (a buffer beside
+    ``Ab``) and they get its pointer and the address of its word offsets
+    (and no step matrix); grouped: an empty blob, K1/K4 get the span
+    tiles; a scorer with only K2 grouped keeps K1/K4's tables."""
     mb, lat, t, sp = _lib("flagship")
     dense = FusedScorer(t)
-    names = ("nz_ptr", "nz_idx", "nz_val", "nz_out")
-    for k in names:
-        np.testing.assert_array_equal(getattr(dense, k).numpy(), sp[k])
-    assert dense.nh == sp["nz_heavy"] == 1
-    assert {"Ab", "Abwd", *names} <= {n for n, _ in dense.named_buffers()}
-    args = dense._step_args(fwd=False)
-    assert len(args) == 10 and args[:6] == [None] * 6
-    assert args[6:] == [getattr(dense, k).data_ptr() for k in names]
-    fwd = dense._step_args(fwd=True)
-    assert len(fwd) == 6 and fwd[0] == dense.Af.data_ptr()
-    grouped = FusedScorer(t, grouped_tables_from_lattice(mb, lat))
-    assert not hasattr(grouped, "nz_ptr") and grouped.nh == 0
-    args = grouped._step_args(fwd=False)
-    assert len(args) == 10 and args[0] == grouped.g_tile_b.data_ptr()
-    assert args[6:] == [None] * 4
+    blob, tab = staged_tables(None, sp)
+    np.testing.assert_array_equal(dense.blob_bwd.numpy(), blob)
+    np.testing.assert_array_equal(dense.tabs["bwd"], tab)
+    for i, k in enumerate(("nz_ptr", "nz_idx", "nz_val", "nz_out")):
+        want = sp[k].reshape(-1)
+        got = blob[tab[7 + i] : tab[7 + i] + want.size]
+        np.testing.assert_array_equal(got.view(want.dtype), want)
+    assert tab[11] == sp["nz_heavy"] == 1
+    assert {"Abwd", "blob_bwd", "blob_fwd"} <= {n for n, _ in dense.named_buffers()}
+    args = dense._step_args("bwd")
+    assert len(args) == 8 and args[:6] == [None] * 6
+    assert args[6:] == [dense.blob_bwd.data_ptr(), dense.tabs["bwd"].ctypes.data]
+    g = grouped_tables_from_lattice(mb, lat)
+    grouped = FusedScorer(t, g)
+    assert grouped.blob_bwd.numel() == 0 and not grouped.tabs["bwd"].any()
+    args = grouped._step_args("bwd")
+    assert len(args) == 8 and args[0] == grouped.g_tile_b.data_ptr() and args[6] is None
+    mixed = FusedScorer(t, g, grouped_kernels=("fwd",))
+    assert mixed.modes == {"bwd": False, "fwd": True} and mixed.grouped
+    np.testing.assert_array_equal(mixed.blob_bwd.numpy(), blob)
+    assert mixed._step_args("fwd")[0] == mixed.g_tile_f.data_ptr()
+    assert mixed._key("bwd") == "bwd" and mixed._key("fwd") == "fwd_grouped"
