@@ -76,7 +76,7 @@ KERNEL_RUNS = (("flagship", True, True), ("plate", True, True),
                ("8", False, True), ("flagship", False, True),
                ("plate", False, True), ("R:N", False, False),
                ("spacer", False, True))
-# the H100's published rates (on-chip-measurement guide): HBM bytes/s and
+# the H100 SXM's published rates: HBM bytes/s and
 # f32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
