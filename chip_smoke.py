@@ -16,10 +16,12 @@ Phases, each fatal on failure (no phase catches its own error):
    lattices of the main paths; K1-K4 grouped (the mode forced) on the
    flagship and the plate; K1/K4 dense on ``R:N`` alone (K = 0, an
    ``-arch`` candidate); K4's logP_b must equal K1's bit for bit;
+   where K1/K4 or K2 stage their step tables in shared memory, K1 or K2 is
+   timed with them left in L2 too;
 4. gate: dense against grouped K1, K2 and K4 at 8, 20, 48 and 96
-   barcodes, beside the work the step-mode gate reads; the gate must pick,
-   per kernel, the mode measured faster; the dense kernels alone on the
-   plate + spacer;
+   barcodes; the engine runs every kernel dense unless grouped is forced,
+   so dense must be the faster mode of each; the dense kernels alone on
+   the plate + spacer;
 5. main paths, each through the port's CLI entry point with the launch
    counts set to 0 just before it and read just after; every kernel of the
    path must have launched, no plain version may run on CUDA tensors,
@@ -30,7 +32,7 @@ Phases, each fatal on failure (no phase catches its own error):
    c. ``tagdust -arch`` over a generated 1M-read 96-plex FASTQ with the
       flagship, the plate and R:N as candidates: detection on the card
       (K4), then the plate's demultiplex; the plate must win;
-   each prints the step mode of each kernel and its launches;
+   each prints its step mode and the launches of each kernel;
 6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
    ``-Q 20``: the flagship, the 8-plex, and the ``-arch`` run (the same
    winner and confidence); per-read outcomes must agree on >= 99.9%.
@@ -204,6 +206,8 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
         fail("K4 logpb outside its tolerance")
     if not torch.equal(score, logpb):
         fail("K4 logpb differs from K1's")
+    if device == "cuda":
+        staging(sc, "bwd", k1, lambda out: torch.equal(out[2], logpb), tag)
     res = {}
     bounds = bound(eng, seqs, lens)
     if device == "cuda":
@@ -233,6 +237,9 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
 
     path, dpfin, flog, tp = k2()
     ppath, pdpfin, pflog, ptp = p2()
+    if device == "cuda":
+        staging(sc, "fwd", k2, lambda out: all(
+            torch.equal(a, b) for a, b in zip(out, (path, dpfin, flog, tp))), tag)
 
     def k3():
         return sc.traceback(path, dpfin)
@@ -298,6 +305,23 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
     return res
 
 
+def staging(sc, kernel: str, fn, same, tag: str) -> None:
+    """Where ``kernel`` ("bwd" or "fwd") stages its step tables in shared
+    memory, time ``fn`` with them left in L2 too (the staging level forced);
+    ``same(fn())`` must hold at both levels."""
+    if sc.staged(kernel) != 2:
+        return
+    bare = int(kernel == "fwd")  # K2 keeps its label tables staged
+    ms = {}
+    for level in (bare, 2):
+        sc._stage[kernel] = level
+        ms[level] = timed(fn)
+        if not same(fn()):
+            fail(f"{kernel} differs at staging level {level}")
+    print(f"[{tag}] {'K2' if bare else 'K1'} step tables in shared memory "
+          f"{ms[2]:.3f} ms, in L2 {ms[bare]:.3f} ms", flush=True)
+
+
 def bound(eng, seqs, lens) -> dict:
     """{counter stem: {"bound_ms", "bound_by"}}: the least time the card
     could take for each kernel's function on these inputs, the larger of
@@ -350,22 +374,20 @@ def report(tag: str, res: dict, B: int, Lp: int) -> None:
 
 def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
     """Dense against grouped K1, K2 and K4 (median of 5, CUDA events) at each
-    library size, beside the work the per-kernel gate reads; the gate must
-    pick, for K1/K4 and for K2, the mode measured faster.  Libraries without
-    a grouped form run the dense kernels alone."""
+    library size.  The engine runs every kernel dense unless
+    TAGDUST_TPU_GROUPED=1 forces grouped, so dense must be the faster mode of
+    each kernel.  Libraries without a grouped form run the dense kernels
+    alone."""
     import torch
 
-    from tagdust_tpu_torch.engine.cuda import GROUPED_WORK_SHARE, step_modes, step_work
     from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
     from tagdust_tpu_torch.engine.tables import grouped_tables_from_lattice
 
     rng = np.random.default_rng(seed)
     seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
     lens = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).cuda()
-    print(f"gate (B={B}, Lp={Lp}, GROUPED_WORK_SHARE={GROUPED_WORK_SHARE}): per "
-          "library S, K, spans, grouped work / non-zero entries per kernel, K1, K2 "
-          "and K4 ms dense and grouped, the gate's pick and the faster mode",
-          flush=True)
+    print(f"gate (B={B}, Lp={Lp}): per library S, K, spans, K1, K2 and K4 ms "
+          "dense and grouped", flush=True)
     for name, eng in models.items():
         g = grouped_tables_from_lattice(eng.mb, eng.lat)
         ms = {}
@@ -383,19 +405,12 @@ def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
         if g is None:
             print(f"gate {name}: S={eng.lat.S} no grouped form; ms {times}", flush=True)
             continue
-        ratio = {k: gw / d for k, (d, gw) in step_work(eng.tables, g).items()}
-        _, kernels = step_modes(eng.mb, eng.lat, eng.tables)
-        line = []
-        for k, stem in (("bwd", ("K1", "K4")), ("fwd", ("K2",))):
-            pick = "grouped" if k in kernels else "dense"
-            for kk in stem:
-                faster = "grouped" if ms[kk, "grouped"] < ms[kk, "dense"] else "dense"
-                line.append(f"{kk} picks {pick}, faster {faster}")
-                if pick != faster:
-                    fail(f"gate {name}: {kk} picks {pick}, measured faster {faster}")
+        slower = [k for k in ("K1", "K2", "K4") if ms[k, "grouped"] < ms[k, "dense"]]
         print(f"gate {name}: S={eng.lat.S} K={int(eng.tables['K'])} "
-              f"spans={len(g['span'])} work ratio K1/K4 {ratio['bwd']:.1f} K2 "
-              f"{ratio['fwd']:.1f}; ms {times}; {'; '.join(line)}", flush=True)
+              f"spans={len(g['span'])}; ms {times}; dense faster for every kernel: "
+              f"{not slower}", flush=True)
+        if slower:
+            fail(f"gate {name}: grouped measured faster for {slower}")
 
 
 BARCODE_SUB = 0.05
@@ -460,7 +475,7 @@ def run_tagdust(args) -> float:
 def run_path(name: str, args, expect) -> dict:
     """Drive one main path through the CLI, with the launch counts set to 0
     just before it and read just after; every kernel in ``expect`` (the
-    counters of the kernels the path runs, in the mode the gate picks) must
+    counters of the kernels the path runs, in the engine's step mode) must
     have launched, and no plain version may have run on CUDA tensors."""
     from tagdust_tpu_torch import controller
     from tagdust_tpu_torch.engine import fused_kernel, runner, scan
@@ -511,26 +526,22 @@ def check_output(name: str, out: str, bcs, truth) -> None:
         fail(f"{name}: barcode precision {precision:.4f} < 0.99")
 
 
-def modes(bcs) -> dict:
-    """The counter suffix of the step mode the gate picks for K1/K4 ("bwd")
-    and K2 ("fwd") of ``-1 B:<bcs> -2 R:N``."""
-    from tagdust_tpu_torch.engine.cuda import step_modes
+def mode(bcs) -> str:
+    """The counter suffix of the step mode the engine takes for ``-1
+    B:<bcs> -2 R:N`` (``-1 R:N`` without barcodes)."""
+    from tagdust_tpu_torch.engine.cuda import grouped_step_mode
     from tagdust_tpu_torch.engine.lattice import compile_lattice
-    from tagdust_tpu_torch.engine.tables import tables_from_lattice
 
     mb = library_model(bcs)
-    lat = compile_lattice(mb)
-    _, kernels = step_modes(mb, lat, tables_from_lattice(mb, lat))
-    return {k: "_grouped" if k in kernels else "" for k in ("bwd", "fwd")}
+    return "" if grouped_step_mode(mb, compile_lattice(mb)) is None else "_grouped"
 
 
 def path_kernels(name: str, bcs) -> list:
     """The counters of the kernels a demultiplex of ``bcs`` runs: K1 and K2
-    in the step modes the gate picks, and K3."""
-    m = modes(bcs)
-    print(f"[{name}] step modes: K1/K4 {m['bwd'][1:] or 'dense'}, K2 "
-          f"{m['fwd'][1:] or 'dense'}", flush=True)
-    return ["bwd" + m["bwd"], "fwd" + m["fwd"], "tb"]
+    in the engine's step mode, and K3."""
+    m = mode(bcs)
+    print(f"[{name}] step mode: {m[1:] or 'dense'}", flush=True)
+    return ["bwd" + m, "fwd" + m, "tb"]
 
 
 def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str) -> dict:
@@ -580,7 +591,7 @@ def phase_arch(sets: dict, seed: int, n_reads: int, tmp: str) -> dict:
     cands = write_candidates(tmp, sets)
     out = os.path.join(tmp, "arch_out")
     # K4 of each candidate in its step mode, then the plate's K1-K3
-    expect = {"score" + modes(b)["bwd"] for b in (sets["flagship"], bcs, [])}
+    expect = {"score" + mode(b) for b in (sets["flagship"], bcs, [])}
     res = run_path("arch", ["-arch", cands, fq, "-o", out, "-engine", "cuda"],
                    sorted(expect) + path_kernels("arch", bcs))
     lines = detection_lines(out)

@@ -12,9 +12,9 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
 * ``backward_scores``  — logP_b only, for architecture detection (K4).
 
 The engine runs on ``device``: ``cuda`` launches the hand-written kernels,
-``cpu`` runs the same pipeline through the plain versions.  Each kernel
-runs in the grouped (block-banded) step mode where the gate ``step_modes``
-picks it for that kernel, else in the dense (non-zero) one.
+``cpu`` runs the same pipeline through the plain versions.  The kernels
+run the dense (non-zero) step, or the grouped (block-banded) one where
+``grouped_step_mode`` is asked for it.
 """
 
 from __future__ import annotations
@@ -33,63 +33,28 @@ from .fused_kernel import FusedScorer
 from .lattice import compile_lattice
 from .tables import grouped_tables_from_lattice, tables_from_lattice
 
-# Per kernel, K1/K4 ("bwd") and K2 ("fwd"): the grouped step mode engages
-# when its work per read and position is at most this many times the dense
-# mode's non-zero entries per base (``step_work``).  Set from the dense and
-# grouped times of each kernel at 8, 20, 48 and 96 barcodes on the H100
-# (PERF.md, gate table): a non-zero entry of the dense step cost as much as
-# 10-12 grouped FMAs in K1 and K4 and 14-18 in K2 there; the smallest of
-# each is the share.  Those libraries need 31-38 grouped FMAs per entry, so
-# every kernel runs dense on them.
-GROUPED_WORK_SHARE = {"bwd": 10.0, "fwd": 14.0}
-
-
-def step_work(tables: dict, g: dict) -> dict:
-    """{kernel: (dense, grouped)} work per read and position: the non-zero
-    entries of the step matrix per base (``Ab`` for K1/K4, ``Af`` with its
-    entry columns for K2), against the grouped mode's span-tile FMAs, its
-    silent-exit sums and flows (2*nm*S) and, for K2, the entry columns from
-    the NU non-zero rows of Uent."""
-    S, K = int(tables["S"]), int(tables["K"])
-    blocks = int((g["span"][:, 1].astype(np.int64) ** 2).sum())
-    grouped = blocks + 2 * g["uexit"].shape[0] * S
-    return {"bwd": (np.count_nonzero(tables["Ab"]) / 5, grouped),
-            "fwd": (np.count_nonzero(tables["Af"]) / 5,
-                    grouped + g["urows"].shape[0] * K)}
-
-
-def step_modes(mb: ModelBag, lat, tables: dict):
-    """(grouped tables, the kernels that run grouped): the counterpart of
-    ``TpuEngine._grouped_decomposition`` (tpu.py:508-529), chosen per kernel
-    by the work measured on the H100 (``GROUPED_WORK_SHARE``); the grouped
-    tables are None when no kernel takes them.  TAGDUST_TPU_GROUPED=0/1
-    forces dense / grouped for every kernel.  A lattice without a grouped
-    form (a chain wider than 128 states, or more than 128 segments) takes
-    the dense mode, loudly when grouped was asked for."""
-    mode = os.environ.get("TAGDUST_TPU_GROUPED", "auto")
-    if mode == "0":
-        return None, ()
+def grouped_step_mode(mb: ModelBag, lat):
+    """The grouped tables of ``mb`` when TAGDUST_TPU_GROUPED=1 asks for the
+    grouped (block-banded) step mode, else None: the dense (non-zero) step
+    is the default for every kernel, since it ran K1, K2 and K4 1.9-4.2x
+    faster than grouped on every library measured on the H100 (8 to 96
+    barcodes, PERF.md gate table).  The counterpart of
+    ``TpuEngine._grouped_decomposition`` (tpu.py:508-529).  A lattice
+    without a grouped form (a chain wider than 128 states, or more than 128
+    segments) takes the dense mode loudly when grouped was asked for."""
+    if os.environ.get("TAGDUST_TPU_GROUPED") != "1":
+        return None
     g = grouped_tables_from_lattice(mb, lat)
     if g is None:
-        if mode == "1":
-            from ..strict import fallback
+        from ..strict import fallback
 
-            fallback(
-                "grouped-step-kernel",
-                ValueError(f"no block-banded form of the {lat.S}-state lattice"),
-                "a chain wider than 128 states or more than 128 segments; "
-                "scoring on the dense (non-zero) step kernels",
-            )
-        return None, ()
-    if mode == "1":
-        return g, ("bwd", "fwd")
-    if len(g["span"]) < 2:
-        # one span is the whole lattice: its tile is the dense product,
-        # which holds every non-zero entry and its zeros
-        return None, ()
-    kernels = tuple(k for k, (dense, grouped) in step_work(tables, g).items()
-                    if grouped <= GROUPED_WORK_SHARE[k] * dense)
-    return (g if kernels else None), kernels
+        fallback(
+            "grouped-step-kernel",
+            ValueError(f"no block-banded form of the {lat.S}-state lattice"),
+            "a chain wider than 128 states or more than 128 segments; "
+            "scoring on the dense (non-zero) step kernels",
+        )
+    return g
 
 
 @dataclass
@@ -113,10 +78,8 @@ class CudaEngine:
         self.device = torch.device(device)
         self.lat = compile_lattice(mb)
         self.tables = tables_from_lattice(mb, self.lat)
-        # the grouped tables (None if no kernel runs grouped) and the
-        # kernels that run grouped
-        self.grouped, kernels = step_modes(mb, self.lat, self.tables)
-        self.scorer = FusedScorer(self.tables, self.grouped, kernels).to(self.device)
+        self.grouped = grouped_step_mode(mb, self.lat)
+        self.scorer = FusedScorer(self.tables, self.grouped).to(self.device)
         t = lambda x: torch.as_tensor(x).to(self.device)  # noqa: E731
         self._bg_log = torch.log(t(self.tables["bg"]))
         self._avg_len = t(self.tables["avg_len"])

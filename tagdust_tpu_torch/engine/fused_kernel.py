@@ -1,10 +1,8 @@
 """``FusedScorer``: the four DP kernels behind one module.
 
 The counterpart of ``tagdust_tpu/engine/pallas_kernel.py:make_fused_scorer``
-in both step modes: dense, or grouped (block-banded) for the kernels named
-in ``grouped_kernels`` when it is given the tables of
-``tables.grouped_tables``; K1/K4 and K2 may take different modes, since both
-keep the stack in the original state order.  The tables are buffers, so
+in both step modes: dense, or grouped (block-banded) when it is given the
+tables of ``tables.grouped_tables``.  The tables are buffers, so
 ``.to(device)`` moves them.  For CUDA tensors each stage launches its
 hand-written kernel (``csrc/fused_dp.cu``) and raises if the launch fails;
 for CPU tensors it runs the plain version of ``engine/scan.py`` in the same
@@ -52,8 +50,7 @@ class FusedScorer(nn.Module):
     """fn(seqs [B, Lp] uint8, lens [B] int32) ->
     (f_log [B], logP_b [B], labels [B, Lp+1] int32, tp [B, K])."""
 
-    def __init__(self, tables: dict, grouped: dict = None,
-                 grouped_kernels=("bwd", "fwd")):
+    def __init__(self, tables: dict, grouped: dict = None):
         super().__init__()
         self.S = int(tables["S"])
         self.K = int(tables["K"])
@@ -62,9 +59,7 @@ class FusedScorer(nn.Module):
         self.begin = int(tables["begin"])
         for name in _TABLES:
             _buffer(self, name, tables[name])
-        # the step mode of K1/K4 ("bwd") and of K2 ("fwd")
-        self.modes = {k: grouped is not None and k in grouped_kernels
-                      for k in ("bwd", "fwd")}
+        self.grouped = grouped is not None
         self.nm = self.NU = 0
         if self.grouped:
             for name in _GROUPED:
@@ -76,27 +71,20 @@ class FusedScorer(nn.Module):
         # word offsets of each blob's tables, passed to the kernels by address
         self.tabs = {}
         for k, step_matrix, lab in (("bwd", "Ab", None), ("fwd", "Af", label)):
-            step = None if self.modes[k] else sparse_tables(tables[step_matrix])
+            step = None if self.grouped else sparse_tables(tables[step_matrix])
             blob, self.tabs[k] = staged_tables(lab, step)
             _buffer(self, "blob_" + k, blob)
         self._rt = {}
         self._stage = {}
 
-    @property
-    def grouped(self) -> bool:
-        """Does any kernel run the grouped step mode?"""
-        return self.modes["bwd"] or self.modes["fwd"]
-
-    def grouped_tables(self, kernel: str = None) -> dict:
-        """The grouped tables as tensors (the plain versions' argument) if
-        ``kernel`` ("bwd" or "fwd"; None: either) runs grouped, else None."""
-        if not (self.modes[kernel] if kernel else self.grouped):
+    def grouped_tables(self) -> dict:
+        """The grouped tables as tensors (the plain versions' argument)."""
+        if not self.grouped:
             return None
         return {name: getattr(self, "g_" + name) for name in _GROUPED}
 
     def _key(self, name: str) -> str:
-        grouped = self.modes["fwd" if name == "fwd" else "bwd"]
-        return name + "_grouped" if grouped else name
+        return name + "_grouped" if self.grouped else name
 
     # ---------------- checks and launch geometry ----------------
     def _check(self, **tensors) -> None:
@@ -127,13 +115,12 @@ class FusedScorer(nn.Module):
             from .build import lib
 
             fwd = kernel == "fwd"
-            grouped = self.modes[kernel]
-            Yr = self.Sr if grouped else (self.S + self.K + 3) // 4 * 4
+            Yr = self.Sr if self.grouped else (self.S + self.K + 3) // 4 * 4
             tab = self.tabs[kernel]
             stage = ctypes.c_int(0)
             rt = lib().td_reads_per_block(
                 int(fwd), self.Sr, Yr, max(self.K, 1), self.H,
-                self.nm if grouped else 0, int(tab[-2]), int(tab[-1]),
+                self.nm if self.grouped else 0, int(tab[-2]), int(tab[-1]),
                 ctypes.addressof(stage))
             if rt <= 0:
                 raise RuntimeError(
@@ -146,7 +133,8 @@ class FusedScorer(nn.Module):
 
     def staged(self, kernel: str) -> int:
         """What ``kernel`` stages in shared memory: 0 nothing, 1 K2's
-        label-DP tables, 2 those and the non-zero step tables."""
+        label-DP tables, 2 the non-zero step tables (after K2's label-DP
+        tables)."""
         self.reads_per_block(kernel)
         return self._stage.get(kernel, 0)
 
@@ -166,7 +154,7 @@ class FusedScorer(nn.Module):
         """Step matrix (the span tiles when grouped, else 0), the grouped
         step's table pointers (0 if dense), the blob and the address of its
         word offsets."""
-        if self.modes[kernel]:
+        if self.grouped:
             tile = self.g_tile_f if kernel == "fwd" else self.g_tile_b
             args = [tile.data_ptr()] + [
                 getattr(self, "g_" + n).data_ptr()
@@ -181,15 +169,15 @@ class FusedScorer(nn.Module):
     def _geometry(self, kernel: str) -> list:
         """nm, grouped, staged, reads per block."""
         rt = self.reads_per_block(kernel)
-        grouped = self.modes[kernel]
-        return [self.nm if grouped else 0, int(grouped), self._stage.get(kernel, 0), rt]
+        return [self.nm if self.grouped else 0, int(self.grouped),
+                self._stage.get(kernel, 0), rt]
 
     # ---------------- K1 ----------------
     def backward(self, seqs: torch.Tensor, lens: torch.Tensor):
         """-> (bstack [Lp+1, B, S], blstack [Lp+1, B], logpb [B])."""
         if not seqs.is_cuda:
             return scan.backward_pass(seqs, lens, self.Abwd, self.end, self.begin,
-                                      grouped=self.grouped_tables("bwd"))
+                                      grouped=self.grouped_tables())
         from .build import check, lib
 
         self._check_batch(seqs, lens)
@@ -213,7 +201,7 @@ class FusedScorer(nn.Module):
         """logP_b [B] of K1 without the stack (architecture detection)."""
         if not seqs.is_cuda:
             return scan.backward_scores(seqs, lens, self.Abwd, self.end, self.begin,
-                                        grouped=self.grouped_tables("bwd"))
+                                        grouped=self.grouped_tables())
         from .build import check, lib
 
         self._check_batch(seqs, lens)
@@ -236,7 +224,7 @@ class FusedScorer(nn.Module):
             return scan.forward_decode(
                 seqs, lens, self.Afwd, self.end, self.Lmap, self.ent_state,
                 self.tmat, self.begin, bstack, blstack, logpb,
-                grouped=self.grouped_tables("fwd"),
+                grouped=self.grouped_tables(),
             )
         from .build import check, lib
 
@@ -258,7 +246,7 @@ class FusedScorer(nn.Module):
         tp = torch.empty((B, self.K), dtype=torch.float32, device=dev)
         m, *g = self._step_args("fwd")
         entry = ([self.g_urows.data_ptr(), self.g_uent.data_ptr(),
-                  self.g_eent.data_ptr()] if self.modes["fwd"] else [None] * 3)
+                  self.g_eent.data_ptr()] if self.grouped else [None] * 3)
         nm, grouped, staged, rt = self._geometry("fwd")
         err = lib().td_fwd(
             seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g, *entry,

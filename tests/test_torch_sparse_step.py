@@ -223,7 +223,7 @@ def test_fused_scorer_holds_the_tables_in_dense_mode():
     """Dense: K1/K4's blob holds the tables of ``Ab`` (a buffer beside
     ``Ab``) and they get its pointer and the address of its word offsets
     (and no step matrix); grouped: an empty blob, K1/K4 get the span
-    tiles; a scorer with only K2 grouped keeps K1/K4's tables."""
+    tiles, and K2 the forward ones beside its label-DP blob."""
     mb, lat, t, sp = _lib("flagship")
     dense = FusedScorer(t)
     blob, tab = staged_tables(None, sp)
@@ -243,8 +243,7 @@ def test_fused_scorer_holds_the_tables_in_dense_mode():
     assert grouped.blob_bwd.numel() == 0 and not grouped.tabs["bwd"].any()
     args = grouped._step_args("bwd")
     assert len(args) == 8 and args[0] == grouped.g_tile_b.data_ptr() and args[6] is None
-    mixed = FusedScorer(t, g, grouped_kernels=("fwd",))
-    assert mixed.modes == {"bwd": False, "fwd": True} and mixed.grouped
-    np.testing.assert_array_equal(mixed.blob_bwd.numpy(), blob)
-    assert mixed._step_args("fwd")[0] == mixed.g_tile_f.data_ptr()
-    assert mixed._key("bwd") == "bwd" and mixed._key("fwd") == "fwd_grouped"
+    args = grouped._step_args("fwd")
+    assert args[0] == grouped.g_tile_f.data_ptr()
+    assert args[6] == grouped.blob_fwd.data_ptr() and grouped.tabs["fwd"][12] > 0
+    assert grouped._key("bwd") == "bwd_grouped" and grouped._key("fwd") == "fwd_grouped"
