@@ -10,14 +10,17 @@ Phases, each fatal on failure (no phase catches its own error):
 2. build: nvcc builds the kernels from ``tagdust_tpu_torch/engine/csrc``;
 3. kernels: every kernel against its plain PyTorch version on the same CUDA
    tensors, B=16384, Lp=64, read lengths 40-64, median of 5 timed runs of
-   each (CUDA events): K1-K4 dense on the 8 x 6nt library, the flagship
+   each (CUDA events, each run behind a device-side spin that keeps the
+   host's launch overhead out of the time; K3 is also timed without it,
+   the host's launch work included): K1-K4 dense on the 8 x 6nt library, the flagship
    model (20 x 6nt barcodes + R:N), the 96 x 8nt plate and the plate's
    barcodes + a 140nt spacer + R:N (S = 2115, no grouped form), the
    lattices of the main paths; K1-K4 grouped (the mode forced) on the
    flagship and the plate; K1/K4 dense on ``R:N`` alone (K = 0, an
    ``-arch`` candidate); K4's logP_b must equal K1's bit for bit;
    where K1/K4 or K2 stage their step tables in shared memory, K1 or K2 is
-   timed with them left in L2 too;
+   timed with them left in L2 too; K3 at long reads (B=1024, Lp=4224, the
+   flagship lattice) against the plain traceback, exact;
 4. gate: dense against grouped K1, K2 and K4 at 8, 20, 48 and 96
    barcodes; the engine runs every kernel dense unless grouped is forced,
    so dense must be the faster mode of each; the dense kernels alone on
@@ -34,13 +37,25 @@ Phases, each fatal on failure (no phase catches its own error):
       (K4), then the plate's demultiplex; the plate must win;
    each prints its step mode and the launches of each kernel;
 6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
-   ``-Q 20``: the flagship, the 8-plex, and the ``-arch`` run (the same
-   winner and confidence); per-read outcomes must agree on >= 99.9%.
+   ``-Q 20`` (a threshold of 0.0: with ``-Q`` the reference does not
+   calibrate): the flagship, the 8-plex, and the ``-arch`` run (the same
+   winner and confidence); per-read outcomes must agree on >= 99.9%, and
+   the reads that differ are listed with Q on both engines; the flagship
+   and the 8-plex also run ``-engine torch`` (the plain versions, on the
+   CPU), and at most 0.01% of the reads may decide apart from the card on
+   the label path;
+7. long reads: 200 reads of the plate library, 5,410-5,470nt (padded to
+   5,472), through the CLI on ``-engine cuda`` and ``-engine exact`` at
+   ``-Q 20``: every read written, K1-K3 launched and no plain version on
+   CUDA tensors, no launch's buffers over ``CudaEngine.STACK_BYTES``; it
+   prints the largest sub-batch and ``torch.cuda.max_memory_allocated()``
+   and lists the reads that decide apart from the exact engine.
 
 The line before the last is the kernels' JSON record: per kernel its
 times, its launches on the main paths, and its bound on this card (the
 larger of the bytes it must move over 3.35 TB/s and the f32 operations the
-inputs need over 67 TFLOP/s, ``bound``); the last line is
+inputs need over 67 TFLOP/s, ``bound``; K3's path reads at 32-byte sector
+granularity); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -130,8 +145,16 @@ def barcode_sets() -> dict:
             "48": generate_barcodes(48, 8, 3), "plate": load_barcodes(PLATE_PATH)}
 
 
-def timed(fn, reps: int = 5) -> float:
-    """Median milliseconds of ``reps`` runs, CUDA events, after one warm-up."""
+# cycles of the device-side spin that each timed run is enqueued behind
+SPIN_CYCLES = 2_000_000
+
+
+def timed(fn, reps: int = 5, spin: bool = True) -> float:
+    """Median milliseconds of ``reps`` runs, CUDA events, after one warm-up.
+    With ``spin`` each run is enqueued behind a device-side spin
+    (``torch.cuda._sleep``, about a millisecond) that outlasts the host's
+    work of launching it, so the events time the device alone; without it
+    they also take in the host's launch overhead (tens of microseconds)."""
     import torch
 
     fn()
@@ -139,6 +162,9 @@ def timed(fn, reps: int = 5) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -301,8 +327,37 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
             res[key if key == "tb" else key + sfx] = {
                 "ms": timed(kfn), "plain_ms": timed(pfn), "max_abs_err": err,
                 **bounds[key]}
+        print(f"[{tag}] K3 {timed(k3, spin=False):.4f} ms with the host's launch "
+              "overhead (CUDA events without the spin); bound "
+              f"{bounds['tb_element']['bound_ms']:.4f} ms at one path element a "
+              "position", flush=True)
     report(tag, res, B, Lp)
     return res
+
+
+def phase_k3_long(eng, seed: int, B: int = 1024, Lp: int = 4224) -> None:
+    """K3 at long reads (lengths Lp-200..Lp): K1 and K2 on the card, then K3
+    against the plain traceback on the same path and dpfin, exact."""
+    import torch
+
+    from tagdust_tpu_torch.engine import scan
+
+    sc = eng.scorer
+    rng = np.random.default_rng(seed)
+    seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
+    lens = torch.from_numpy(rng.integers(Lp - 200, Lp + 1, B).astype(np.int32)).cuda()
+    bst, blst, logpb = sc.backward(seqs, lens)
+    path, dpfin, _, _ = sc.forward_decode(seqs, lens, bst, blst, logpb)
+    del bst, blst
+    labels = sc.traceback(path, dpfin)
+    plabels = scan.traceback(path, dpfin)
+    n_tb = int((labels != plabels).any(dim=1).sum())
+    ms = timed(lambda: sc.traceback(path, dpfin))
+    plain = timed(lambda: scan.traceback(path, dpfin), reps=1)
+    print(f"[S={sc.S} long] K3 at B={B}, Lp={Lp}: reads whose labels differ from the "
+          f"plain traceback {n_tb}; kernel {ms:.4f} ms, plain {plain:.3f} ms", flush=True)
+    if n_tb:
+        fail("K3 disagrees with its plain version on long reads")
 
 
 def staging(sc, kernel: str, fn, same, tag: str) -> None:
@@ -332,7 +387,10 @@ def bound(eng, seqs, lens) -> dict:
     * nnz(Af[c]) for the step and its entry columns, 4 S for the
     posteriors and the rescale, 3 K for the entry posteriors, 2 * nnz(tmat)
     + 2 H for the label DP.  Both step modes compute the same function and
-    share the bound.  K3 reads one backpointer per position."""
+    share the bound.  K3 follows one backpointer per (read, position), and a
+    load whose address depends on the last value moves a whole 32-byte
+    sector: min(32, H * path bytes) of the path each ("tb"; "tb_element"
+    counts one element each)."""
     import torch
 
     t = eng.tables
@@ -347,7 +405,8 @@ def bound(eng, seqs, lens) -> dict:
     stack = (Lp + 1) * B * (S + 1) * 4 + 4 * B
     tables_b = 8 * nnz_b.sum() + 4 * 5 * (S + 1)
     tables_f = 8 * nnz_f.sum() + 4 * 5 * (S + K + 1) + 12 * np.count_nonzero(t["tmat"])
-    path = Lp * B * H * (1 if H <= 127 else 4)
+    pb = 1 if H <= 127 else 4
+    path = Lp * B * H * pb
     ops_b = 2 * (steps @ nnz_b) + 2 * S * n_steps
     ops_f = (2 * (steps @ nnz_f) + (4 * S + 3 * K + 2 * H
              + 2 * np.count_nonzero(t["tmat"])) * n_steps)
@@ -355,7 +414,8 @@ def bound(eng, seqs, lens) -> dict:
         "bwd": (inputs + tables_b + stack, ops_b),
         "score": (inputs + tables_b + 4 * B, ops_b),
         "fwd": (inputs + tables_f + stack + path + 4 * B * (H + K + 1), ops_f),
-        "tb": (B * Lp * (1 if H <= 127 else 4) + 4 * B * H + 4 * B * (Lp + 1), B * H),
+        "tb": (B * Lp * min(32, H * pb) + 4 * B * H + 4 * B * (Lp + 1), B * H),
+        "tb_element": (B * Lp * pb + 4 * B * H + 4 * B * (Lp + 1), B * H),
     }
     out = {}
     for key, (nbytes, ops) in work.items():
@@ -416,15 +476,16 @@ def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
 BARCODE_SUB = 0.05
 
 
-def write_fastq(path: str, n: int, seed: int, barcodes) -> np.ndarray:
+def write_fastq(path: str, n: int, seed: int, barcodes,
+                lengths: tuple = (50, 60)) -> np.ndarray:
     """90% of reads: a barcode of the set (5% substitutions) then a random
-    insert, 50-60nt in all; 10% random reads.  Returns the true barcode
-    index of each read (-1 for random reads)."""
+    insert, ``lengths`` (50-60nt) in all; 10% random reads.  Returns the
+    true barcode index of each read (-1 for random reads)."""
     rng = np.random.default_rng(seed)
-    L = 60
+    L = lengths[1]
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
     seq = alpha[rng.integers(0, 4, (n, L))]
-    lens = rng.integers(50, L + 1, n)
+    lens = rng.integers(lengths[0], L + 1, n)
     truth = rng.integers(0, len(barcodes), n)
     truth[rng.random(n) < 0.1] = -1
     bc = np.array([np.frombuffer(b.encode(), dtype=np.uint8) for b in barcodes])
@@ -452,6 +513,19 @@ def read_names(path: str) -> np.ndarray:
             if k % 4 == 0:
                 out.append(int(line[2:].split()[0].split(b";")[0]))
     return np.asarray(out, dtype=np.int64)
+
+
+def read_q(prefix: str, barcodes) -> dict:
+    """{read index: Q} from the ``;RQ:`` headers (two decimals) of a run's
+    output files."""
+    out = {}
+    for f in [f"{prefix}_BC_{b}.fq" for b in barcodes] + [f"{prefix}_un.fq"]:
+        with open(f, "rb") as fh:
+            for k, line in enumerate(fh):
+                if k % 4 == 0:
+                    name, _, q = line[1:].strip().partition(b";RQ:")
+                    out[int(name[1:].split(b";")[0])] = float(q)
+    return out
 
 
 def outcomes(prefix: str, barcodes, n: int) -> np.ndarray:
@@ -612,29 +686,140 @@ def head_fastq(fq: str, path: str, n: int) -> str:
     return path
 
 
-def phase_cross(name: str, fq: str, tmp: str, arch_args, bcs,
+# the cross-checks' -Q (with -Q given, the reference labels at a threshold
+# of 0.0: no calibration), how near the threshold a read on which the card
+# and the plain versions decide apart must score to count as a threshold
+# flip (Q is read from the headers' two decimals, so half their step is
+# added), and the share of reads that may decide apart on the label path
+# instead (the kernels phase's bound on reads whose labels differ)
+CROSS_Q = 20
+NEAR_Q = 1e-2 + 5e-3
+PATH_FLIPS = 1e-4
+
+
+def differing(res: dict, qs: dict, a: str, b: str) -> list:
+    """[(read, outcome a, Q a, outcome b, Q b)] where engines a and b decide
+    apart (outcome: barcode index, -1 unassigned)."""
+    return [(int(i), int(res[a][i]), qs[a][int(i)], int(res[b][i]), qs[b][int(i)])
+            for i in np.nonzero(res[a] != res[b])[0]]
+
+
+def show(rows: list) -> str:
+    return ", ".join("r%d %d Q %.2f / %d Q %.2f" % r for r in rows) or "none"
+
+
+def run_threshold(prefix: str) -> float:
+    """The threshold a run labelled with, from its log."""
+    with open(f"{prefix}_logfile.txt") as fh:
+        for ln in fh:
+            if "selected threshold" in ln:
+                return float(ln.split("\t")[-2])
+    fail(f"no threshold in {prefix}_logfile.txt")
+
+
+def phase_cross(name: str, fq: str, tmp: str, arch_args, bcs, torch_leg: bool = False,
                 n: int = 20000) -> None:
-    """The first ``n`` reads at ``-Q 20`` on ``-engine cuda`` and
-    ``-engine exact``: per-read outcomes agree on >= 99.9%, and any
-    ``-arch`` detection picks the same winner with the same confidence."""
+    """The first ``n`` reads at ``-Q 20`` on ``-engine cuda`` and ``-engine
+    exact`` (and ``-engine torch``, the plain versions on the CPU, with
+    ``torch_leg``): per-read outcomes of cuda and exact agree on >= 99.9%,
+    and any ``-arch`` detection picks the same winner with the same
+    confidence.  A read on which cuda and torch decide apart is a threshold
+    flip if it scores within 1e-2 of the run's threshold on one of them, and
+    else a label-path flip (a near-tie of the label DP, as the kernels
+    phase counts them), of which at most ``PATH_FLIPS`` of the reads may
+    occur."""
     head = head_fastq(fq, os.path.join(tmp, f"{name}_head.fq"), n)
     from tagdust_tpu_torch import controller
 
-    res, det = {}, {}
-    for eng in ("cuda", "exact"):
+    res, det, qs = {}, {}, {}
+    for eng in ("cuda", "exact") + (("torch",) if torch_leg else ()):
         prefix = os.path.join(tmp, f"{name}_x_{eng}")
-        t = run_tagdust([*arch_args, head, "-o", prefix, "-Q", "20", "-engine", eng])
+        t = run_tagdust([*arch_args, head, "-o", prefix, "-Q", str(CROSS_Q),
+                         "-engine", eng])
         res[eng] = outcomes(prefix, bcs, n)
+        qs[eng] = read_q(prefix, bcs)
         det[eng] = detection_lines(prefix)
         print(f"[{name}] cross-check {eng}: {t:.2f} s wall, detection "
               f"{controller.TIMINGS['detection']:.2f} s {brief(det[eng])}", flush=True)
-    dis = int((res["cuda"] != res["exact"]).sum())
-    print(f"[{name}] cross-check: {dis} of {n} reads disagree with the exact "
-          "engine", flush=True)
-    if dis > n * 1e-3:
+    rows = differing(res, qs, "cuda", "exact")
+    print(f"[{name}] cross-check: {len(rows)} of {n} reads disagree with the exact "
+          f"engine (read, outcome and Q on cuda / on exact): {show(rows)}", flush=True)
+    if len(rows) > n * 1e-3:
         fail(f"{name}: device and exact engine disagree on more than 0.1% of reads")
     if det["cuda"] != det["exact"]:
         fail(f"{name}: detection differs from the exact engine")
+    if torch_leg:
+        thr = run_threshold(os.path.join(tmp, f"{name}_x_cuda"))
+        rows = differing(res, qs, "cuda", "torch")
+        paths = [r for r in rows if min(abs(r[2] - thr), abs(r[4] - thr)) > NEAR_Q]
+        print(f"[{name}] cross-check: {len(rows)} of {n} reads disagree between the "
+              f"card and the plain versions (-engine torch; on cuda / on torch) at a "
+              f"threshold of {thr}: {show(rows)}; of them label-path flips (Q away "
+              f"from the threshold): {len(paths)}", flush=True)
+        if len(paths) > n * PATH_FLIPS:
+            fail(f"{name}: the card and the plain versions decide apart on the label "
+                 f"path of more than {PATH_FLIPS:.2%} of the reads: {show(paths)}")
+
+
+# the long-read phase: reads of the plate library padded past 5,400nt
+LONG_READS = 200
+LONG_LENGTHS = (5410, 5470)
+
+
+def phase_long(bcs, seed: int, tmp: str) -> dict:
+    """``LONG_READS`` reads of the plate library, 5,410-5,470nt (padded to
+    5,472), through the CLI on ``-engine cuda`` at ``-Q 20``, then on
+    ``-engine exact``.  Every read must be written, K1-K3 must have
+    launched and no plain version run on CUDA tensors, and no launch's
+    buffers may exceed ``CudaEngine.STACK_BYTES``; the reads on which the
+    engines decide apart are listed with their Q on both (more than 5% of
+    them fails)."""
+    import torch
+
+    from tagdust_tpu_torch.engine import cuda as cuda_mod
+    from tagdust_tpu_torch.engine import fused_kernel, scan
+
+    fq = os.path.join(tmp, "long.fq")
+    write_fastq(fq, LONG_READS, seed + 2, bcs, LONG_LENGTHS)
+    args = ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-Q", str(CROSS_Q)]
+    for k in fused_kernel.LAUNCHES:
+        fused_kernel.LAUNCHES[k] = 0
+    scan.PLAIN_CUDA_CALLS["count"] = 0
+    cuda_mod.LAUNCH_STATS.update(reads=0, bytes=0)
+    torch.cuda.reset_peak_memory_stats()
+    res, qs = {}, {}
+    for eng in ("cuda", "exact"):
+        prefix = os.path.join(tmp, f"long_{eng}")
+        t = run_tagdust([*args, "-o", prefix, "-engine", eng])
+        res[eng] = outcomes(prefix, bcs, LONG_READS)
+        qs[eng] = read_q(prefix, bcs)
+        print(f"[long] {eng}: {t:.2f} s wall", flush=True)
+        if eng == "cuda":
+            launches = dict(fused_kernel.LAUNCHES)
+            plain = scan.PLAIN_CUDA_CALLS["count"]
+            peak = torch.cuda.max_memory_allocated()
+    stats = dict(cuda_mod.LAUNCH_STATS)
+    budget = cuda_mod.CudaEngine.STACK_BYTES
+    print(f"[long] {LONG_READS} reads of {LONG_LENGTHS[0]}-{LONG_LENGTHS[1]}nt on the "
+          f"plate: largest sub-batch {stats['reads']} reads, {stats['bytes']} bytes of "
+          f"buffers (budget {budget}); max_memory_allocated {peak} bytes; launches "
+          f"{ {k: launches[k] for k in ('bwd', 'fwd', 'tb')} }, plain-on-CUDA calls "
+          f"{plain}", flush=True)
+    if min(launches[k] for k in ("bwd", "fwd", "tb")) <= 0:
+        fail(f"long: kernels of the path never launched: {launches}")
+    if plain:
+        fail(f"long: plain versions ran {plain} times on CUDA tensors")
+    if stats["bytes"] > budget:
+        fail(f"long: a launch's buffers ({stats['bytes']} bytes) exceeded {budget}")
+    for eng in res:
+        if (res[eng] == -2).any():
+            fail(f"long: {int((res[eng] == -2).sum())} reads missing on {eng}")
+    rows = differing(res, qs, "cuda", "exact")
+    print(f"[long] {len(rows)} of {LONG_READS} reads decide apart from the exact "
+          f"engine (read, outcome and Q on cuda / on exact): {show(rows)}", flush=True)
+    if len(rows) > LONG_READS * 0.05:
+        fail("long: more than 5% of the reads decide apart from the exact engine")
+    return dict(stats, peak=peak, differ=len(rows))
 
 
 def main() -> int:
@@ -678,6 +863,7 @@ def main() -> int:
     for name, grouped, full in KERNEL_RUNS:
         for key, r in phase_kernels(kmodels[name], grouped, args.seed, full).items():
             timing[key, name] = r
+    phase_k3_long(kmodels["flagship"], args.seed)
     print(f"kernel times above on: {card}", flush=True)
     phase_gate(dict(models, spacer=kmodels["spacer"]), args.seed)
     print(f"gate times above on: {card}", flush=True)
@@ -698,9 +884,11 @@ def main() -> int:
         for name, r in (("flagship", m), ("8-plex", small)):
             bcs = sets["flagship" if name == "flagship" else "8"]
             phase_cross(name, r["fq"], tmp, ["-1", f"B:{','.join(bcs)}", "-2", "R:N"],
-                        bcs)
+                        bcs, torch_leg=True)
         phase_cross("arch", arch["fq"], tmp, ["-arch", arch["cands"]],
                     sets["plate"])
+        phase_long(sets["plate"], args.seed, tmp)
+        print(f"long-read times above on: {card}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if min(launches[k] for k in ("bwd", "fwd", "tb", "score")) <= 0:

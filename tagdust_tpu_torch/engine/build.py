@@ -84,8 +84,8 @@ def lib():
     L.td_reads_per_block.argtypes = [I] * 8 + [P]
     L.td_bwd.argtypes = [P] * 14 + [I] * 9 + [P]
     L.td_bwd_score.argtypes = [P] * 12 + [I] * 9 + [P]
-    L.td_fwd.argtypes = [P] * 21 + [I] * 13 + [P]
-    L.td_tb.argtypes = [P, P, P, I, I, I, I, P]
+    L.td_fwd.argtypes = [P] * 21 + [I] * 14 + [P]
+    L.td_tb.argtypes = [P, P, P] + [I] * 5 + [P]
     L.td_blocks_per_sm.argtypes = [I] * 10 + [P, I]
     for fn in (L.td_reads_per_block, L.td_bwd, L.td_bwd_score, L.td_fwd, L.td_tb,
                L.td_blocks_per_sm):

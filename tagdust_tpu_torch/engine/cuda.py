@@ -5,7 +5,9 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
 * ``run_batch``        — the scan engine: the plain versions of
   ``engine/scan.py`` end to end (the reference path of the tests);
 * ``run_batch_fused``  — the fused kernels (``FusedScorer``) plus the
-  scoring epilogue (r_log, bar_prob, Q), sub-batched under a stack budget;
+  scoring epilogue (r_log, bar_prob, Q), in sub-batches whose buffers stay
+  inside ``STACK_BYTES`` (down to one read; a read that alone exceeds it is
+  refused);
 * ``dispatch_decided`` — the streaming decided mode (rows parsed by
   ``decided.collect_decided``):
   labels stay on the device, the host receives Lp/8+25 bytes per read;
@@ -14,7 +16,11 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
 The engine runs on ``device``: ``cuda`` launches the hand-written kernels,
 ``cpu`` runs the same pipeline through the plain versions.  The kernels
 run the dense (non-zero) step, or the grouped (block-banded) one where
-``grouped_step_mode`` is asked for it.
+``grouped_step_mode`` is asked for it.  On the card the engine refuses,
+when it is built, a lattice whose carries for one read do not fit a
+block's shared memory (beyond about 28,000 states, where the host's dense
+lattice compile already needs about 30 GB): nothing falls back to the
+plain versions on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -27,9 +33,10 @@ import numpy as np
 import torch
 
 from ..model import ModelBag
+from ..strict import note
 from . import decided as D
 from . import scan
-from .fused_kernel import FusedScorer
+from .fused_kernel import FusedScorer, path_pitch
 from .lattice import compile_lattice
 from .tables import grouped_tables_from_lattice, tables_from_lattice
 
@@ -57,6 +64,15 @@ def grouped_step_mode(mb: ModelBag, lat):
     return g
 
 
+# the largest fused launch since the last reset: its reads and the bytes of
+# its per-read buffers (CudaEngine.launch_bytes)
+LAUNCH_STATS = {"reads": 0, "bytes": 0}
+
+# reads padded past this length print the long-reads note (the JAX package
+# scores them on its scan engine, tagdust_tpu/engine/runner.py:265-273)
+LONG_READ_NT = 4096
+
+
 @dataclass
 class BatchResult:
     f_score: np.ndarray  # [B] log P(x|M)
@@ -69,8 +85,8 @@ class BatchResult:
 class CudaEngine:
     """Batched scorer for one compiled model on one torch device."""
 
-    # device-memory budget for the backward stack, (Lp+1)*B*(S+1)*4 bytes:
-    # a tenth of an 80 GB H100, so DEPTH windows in flight stay far inside it
+    # device-memory budget for the buffers of the launches in flight (the
+    # stack, the path, the labels; launch_bytes): a tenth of an 80 GB H100
     STACK_BYTES = 8 << 30
 
     def __init__(self, mb: ModelBag, device="cuda"):
@@ -79,7 +95,13 @@ class CudaEngine:
         self.lat = compile_lattice(mb)
         self.tables = tables_from_lattice(mb, self.lat)
         self.grouped = grouped_step_mode(mb, self.lat)
-        self.scorer = FusedScorer(self.tables, self.grouped).to(self.device)
+        self.scorer = FusedScorer(self.tables, self.grouped)
+        if self.device.type == "cuda":
+            # refuse a lattice the kernels cannot run before any read is
+            # scored (RuntimeError naming the bytes and the card's limit)
+            for kernel in ("bwd", "fwd"):
+                self.scorer.reads_per_block(kernel)
+        self.scorer.to(self.device)
         t = lambda x: torch.as_tensor(x).to(self.device)  # noqa: E731
         self._bg_log = torch.log(t(self.tables["bg"]))
         self._avg_len = t(self.tables["avg_len"])
@@ -97,11 +119,28 @@ class CudaEngine:
         bt = os.environ.get("TAGDUST_TPU_BT")
         return max(int(bt) // 8 * 8, 8) if bt else 256
 
-    def stack_bytes_per_read(self, Lp: int) -> int:
-        """Bytes of K1's stack per read, (Lp+1) * (S+1) * 4.  The stack is
-        S states wide in both step modes: the grouped mode keeps the
-        original state order, without the TPU's 128-lane span padding."""
-        return (Lp + 1) * (self.lat.S + 1) * 4
+    def launch_bytes(self, B: int, Lp: int) -> int:
+        """Device bytes of the per-read buffers of one fused launch over B
+        reads padded to Lp: K1's stack and log scales ((Lp+1) * (S+1) * 4;
+        S states wide in both step modes), K2's path (Lp * H, its rows
+        padded to ``path_pitch``), dpfin, tp, the scores, the labels (int32
+        from K3 and their narrow copy) and the reads."""
+        S, K = self.lat.S, int(self.tables["K"])
+        H = int(self.tables["tmat"].shape[0])
+        per_read = ((Lp + 1) * (S + 1) * 4 + (Lp + 1) * (4 + self._lab_bytes())
+                    + 4 * (H + K + 4) + Lp)
+        path = path_pitch(B) * Lp * H * scan.path_dtype(H).itemsize
+        return B * per_read + path
+
+    def reads_within(self, Lp: int, budget: int) -> int:
+        """The most reads of Lp whose launch stays inside ``budget`` bytes
+        (0 if one read does not)."""
+        b = budget * 16 // self.launch_bytes(16, Lp)  # within 16 of the answer
+        while self.launch_bytes(b + 1, Lp) <= budget:
+            b += 1
+        while b > 0 and self.launch_bytes(b, Lp) > budget:
+            b -= 1
+        return b
 
     def required_finger_len(self) -> int:
         from ..extract import required_finger_length
@@ -149,6 +188,17 @@ class CudaEngine:
 
     def _full(self, seqs: torch.Tensor, lens: torch.Tensor):
         """Fused kernels + scoring epilogue (tpu.py _get_pallas.full)."""
+        B, Lp = seqs.shape
+        if Lp > LONG_READ_NT:
+            note(
+                "long-reads",
+                f"reads pad to {Lp}nt > {LONG_READ_NT}nt; scoring them on the "
+                f"{'CUDA kernels' if seqs.is_cuda else 'plain versions'} in "
+                f"sub-batches whose buffers stay inside {self.STACK_BYTES} bytes",
+            )
+        nbytes = self.launch_bytes(B, Lp)
+        if nbytes > LAUNCH_STATS["bytes"]:
+            LAUNCH_STATS.update(reads=B, bytes=nbytes)
         f_log, _, labels, tp = self.scorer(seqs, lens)
         r_log = scan.random_log(seqs, lens, self._bg_log, self._avg_len)
         bar = scan.bar_log(tp, self._bar_segments)
@@ -186,12 +236,21 @@ class CudaEngine:
 
     def run_batch_fused(self, seqs: np.ndarray, lens: np.ndarray,
                         want_labels: bool = True) -> BatchResult:
-        """Fused-kernel path (tpu.py run_batch_pallas), sub-batched so the
-        stack stays inside STACK_BYTES."""
+        """Fused-kernel path (tpu.py run_batch_pallas), in sub-batches
+        whose buffers stay inside STACK_BYTES: a multiple of the batch
+        granularity where one fits, else as many reads as fit, down to one.
+        A read whose buffers alone exceed the budget is refused."""
         B, Lp = seqs.shape
         BT = self.default_batch_tile()
-        max_b = self.STACK_BYTES // self.stack_bytes_per_read(Lp)
-        max_b = max(BT, max_b // BT * BT)
+        max_b = self.reads_within(Lp, self.STACK_BYTES)
+        if max_b == 0:
+            raise RuntimeError(
+                f"a read padded to {Lp}nt needs {self.launch_bytes(1, Lp)} bytes "
+                f"of device buffers, over the {self.STACK_BYTES}-byte budget "
+                "(CudaEngine.STACK_BYTES)"
+            )
+        if max_b >= BT:
+            max_b = max_b // BT * BT
         seqs, lens = self._pad(seqs, lens, BT)
         parts = []
         for s in range(0, seqs.shape[0], max_b):

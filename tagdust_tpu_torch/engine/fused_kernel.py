@@ -46,6 +46,26 @@ def _buffer(module: nn.Module, name: str, x) -> None:
     module.register_buffer(name, torch.from_numpy(np.ascontiguousarray(x)))
 
 
+def path_pitch(B: int) -> int:
+    """Rows between K2's position slabs of the path: B rounded up to 16, so
+    that K3's bulk copies of every [32, H] tile start 16-byte aligned."""
+    return -(-B // 16) * 16
+
+
+def _pitched(path: torch.Tensor):
+    """(path, pitch) in K3's layout: [Lp, B, H] with contiguous rows,
+    position slabs ``pitch`` rows apart (a multiple of 16) and a 16-byte
+    aligned base.  K2's path has it; any other is copied into it."""
+    Lp, B, H = path.shape
+    s0, s1, s2 = path.stride()
+    if (s2 == 1 and s1 == H and s0 % (16 * H) == 0 and s0 >= B * H
+            and path.data_ptr() % 16 == 0):
+        return path, s0 // H
+    out = path.new_empty((Lp, path_pitch(B), H))
+    out[:, :B] = path
+    return out[:, :B], path_pitch(B)
+
+
 class FusedScorer(nn.Module):
     """fn(seqs [B, Lp] uint8, lens [B] int32) ->
     (f_log [B], logP_b [B], labels [B, Lp+1] int32, tp [B, K])."""
@@ -117,18 +137,21 @@ class FusedScorer(nn.Module):
             fwd = kernel == "fwd"
             Yr = self.Sr if self.grouped else (self.S + self.K + 3) // 4 * 4
             tab = self.tabs[kernel]
-            stage = ctypes.c_int(0)
+            out = (ctypes.c_longlong * 3)()  # stage, one read's bytes, limit
             rt = lib().td_reads_per_block(
                 int(fwd), self.Sr, Yr, max(self.K, 1), self.H,
                 self.nm if self.grouped else 0, int(tab[-2]), int(tab[-1]),
-                ctypes.addressof(stage))
+                ctypes.addressof(out))
             if rt <= 0:
+                name = "K2 (td_fwd)" if fwd else "K1 and K4 (td_bwd)"
                 raise RuntimeError(
-                    f"lattice of {self.S} states does not fit one block's "
-                    "shared memory"
+                    f"the lattice of {self.S} states does not fit the card: "
+                    f"one read's carries in {name} need {out[1]} bytes of "
+                    f"shared memory per block, over the card's limit of "
+                    f"{out[2]} bytes; -engine torch scores it on the CPU"
                 )
             self._rt[kernel] = rt
-            self._stage[kernel] = stage.value
+            self._stage[kernel] = int(out[0])
         return self._rt[kernel]
 
     def staged(self, kernel: str) -> int:
@@ -219,7 +242,9 @@ class FusedScorer(nn.Module):
 
     # ---------------- K2 ----------------
     def forward_decode(self, seqs, lens, bstack, blstack, logpb):
-        """-> (path [Lp, B, H], dpfin [B, H], f_log [B], tp [B, K])."""
+        """-> (path [Lp, B, H], dpfin [B, H], f_log [B], tp [B, K]); on the
+        card the path is a view whose position slabs are ``path_pitch(B)``
+        rows apart."""
         if not seqs.is_cuda:
             return scan.forward_decode(
                 seqs, lens, self.Afwd, self.end, self.Lmap, self.ent_state,
@@ -240,7 +265,8 @@ class FusedScorer(nn.Module):
                 raise TypeError(f"{name} must be float32, got {t.dtype}")
         dev = seqs.device
         pdt = scan.path_dtype(self.H)
-        path = torch.empty((Lp, B, self.H), dtype=pdt, device=dev)
+        pitch = path_pitch(B)
+        path = torch.empty((Lp, pitch, self.H), dtype=pdt, device=dev)[:, :B]
         dpfin = torch.empty((B, self.H), dtype=torch.float32, device=dev)
         flog = torch.empty(B, dtype=torch.float32, device=dev)
         tp = torch.empty((B, self.K), dtype=torch.float32, device=dev)
@@ -252,8 +278,8 @@ class FusedScorer(nn.Module):
             seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g, *entry,
             bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
             path.data_ptr(), dpfin.data_ptr(), flog.data_ptr(), tp.data_ptr(),
-            B, Lp, self.S, self.Sr, self.K, self.H, self.begin, nm, self.NU,
-            grouped, staged, path.element_size(), rt, _stream(),
+            B, pitch, Lp, self.S, self.Sr, self.K, self.H, self.begin, nm,
+            self.NU, grouped, staged, path.element_size(), rt, _stream(),
         )
         check(err, "td_fwd")
         LAUNCHES[self._key("fwd")] += 1
@@ -266,7 +292,9 @@ class FusedScorer(nn.Module):
             return scan.traceback(path, dpfin)
         from .build import check, lib
 
-        self._check(path=path, dpfin=dpfin)
+        self._check(dpfin=dpfin)
+        if path.device != dpfin.device:
+            raise ValueError(f"path on {path.device}, dpfin on {dpfin.device}")
         Lp, B, H = path.shape
         if H != self.H or tuple(dpfin.shape) != (B, H):
             raise ValueError("path/dpfin shapes do not match the lattice")
@@ -274,8 +302,9 @@ class FusedScorer(nn.Module):
                 or dpfin.dtype != torch.float32):
             raise TypeError(f"path {path.dtype} / dpfin {dpfin.dtype}")
         labels = torch.empty((B, Lp + 1), dtype=torch.int32, device=path.device)
+        path, pitch = _pitched(path)
         err = lib().td_tb(
-            path.data_ptr(), dpfin.data_ptr(), labels.data_ptr(), B, Lp, H,
+            path.data_ptr(), dpfin.data_ptr(), labels.data_ptr(), B, pitch, Lp, H,
             path.element_size(), _stream(),
         )
         check(err, "td_tb")

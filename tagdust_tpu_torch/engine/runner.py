@@ -276,7 +276,8 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     """Pipelined decided-mode labelling: windows of at most 16,384 reads,
     up to DEPTH in flight; the host applies window k's decisions while the
     device scores k+1..k+DEPTH.  Returns False when the decided-mode gate is
-    off or the chunk fits one window (the caller labels it one-shot)."""
+    off, the chunk fits one window, or a window of the batch granularity
+    would not fit the stack budget (the caller labels it one-shot)."""
     from ..extract import apply_device_decisions
     from ..io.batch import padded_matrix
 
@@ -291,11 +292,15 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     Lpad = max((int(full_lens.max(initial=1)) + 31) // 32 * 32, 32)
     DEPTH = max(int(os.environ.get("TAGDUST_TPU_PIPELINE_DEPTH", "3")), 1)
     BT = eng.default_batch_tile()
-    W = eng.STACK_BYTES // DEPTH // eng.stack_bytes_per_read(Lpad)
-    W = int(min(max(W // BT * BT, BT), 16384))
+    # DEPTH windows in flight share the budget; where a window of BT reads
+    # would not fit, the one-shot path sub-batches the chunk instead
+    fit = eng.reads_within(Lpad, eng.STACK_BYTES // DEPTH) // BT * BT
+    if fit < BT:
+        return False
+    W = min(fit, 16384)
     wenv = os.environ.get("TAGDUST_TPU_WINDOW")
     if wenv:
-        W = max(int(wenv) // BT * BT, BT)
+        W = min(max(int(wenv) // BT * BT, BT), fit)
     if B <= W:
         return False
 

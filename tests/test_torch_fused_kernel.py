@@ -201,3 +201,44 @@ def test_cuda_kernels_match_plain(specs, avg, Lp):
         sc.backward(seqs.int(), lens)
     with pytest.raises(ValueError):
         sc.backward(seqs.cpu().cuda()[:, ::2], lens)
+
+
+# (segments, B, Lp): the flagship at 4224 (past the JAX package's 4096nt
+# bound), and the plate at 5440, whose K1 stack of 5441 x 256 x 1555
+# entries passes 2^31, so a 32-bit index into it (or into K2's reads of it)
+# would wrap
+LONG_CASES = [
+    ([f"B:{','.join(load_barcodes())}", "R:N"], 1024, 4224),
+    ([f"B:{','.join(load_barcodes(PLATE_PATH))}", "R:N"], 256, 5440),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("specs,B,Lp", LONG_CASES, ids=["flagship-4224", "plate-5440"])
+def test_cuda_kernels_long_reads(specs, B, Lp):
+    """K1 and K2 on long reads against the plain versions (K2 on the
+    kernel's stack), and K3 exact on K2's path and dpfin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    mb = model(specs, 50, Lp + 16)
+    sc = FusedScorer(tables_from_lattice(mb)).cuda()
+    rng = np.random.default_rng(1)
+    seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
+    lens = torch.from_numpy(rng.integers(Lp - 300, Lp + 1, B).astype(np.int32)).cuda()
+    bst, blst, logpb = sc.backward(seqs, lens)
+    torch.cuda.synchronize()
+    # slot Lp holds the end vector for every read, past 2^31 entries on the plate
+    assert torch.equal(bst[Lp], sc.end[None, :].expand(B, sc.S))
+    _, _, plogpb = scan.backward_pass(seqs, lens, sc.Abwd, sc.end, sc.begin)
+    assert ((logpb - plogpb).abs() <= 1e-4 + 1e-5 * plogpb.abs()).all()
+    path, dp, f_log, tp = sc.forward_decode(seqs, lens, bst, blst, logpb)
+    _, pdp, pf, ptp = scan.forward_decode(
+        seqs, lens, sc.Afwd, sc.end, sc.Lmap, sc.ent_state, sc.tmat, sc.begin,
+        bst, blst, logpb)
+    del bst, blst
+    assert ((f_log - pf).abs() <= 1e-4 + 1e-5 * pf.abs()).all()
+    torch.testing.assert_close(tp, ptp, rtol=1e-4, atol=1e-6)
+    # dpfin sums Lp max-plus steps: over thousands of them a near tie can
+    # take another source (2 of 22,528 entries 2.6e-4 apart at 4224)
+    torch.testing.assert_close(dp, pdp, rtol=1e-3, atol=1e-6)
+    assert torch.equal(sc.traceback(path, dp), scan.traceback(path, dp))
