@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tagdust_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--reads N]
+    python3 chip_smoke.py [--seed N] [--reads N] [--only PHASE,...]
 
 Phases, each fatal on failure (no phase catches its own error):
 
@@ -21,6 +21,12 @@ Phases, each fatal on failure (no phase catches its own error):
    where K1/K4 or K2 stage their step tables in shared memory, K1 or K2 is
    timed with them left in L2 too; K3 at long reads (B=1024, Lp=4224, the
    flagship lattice) against the plain traceback, exact;
+   ``td_myers`` (the artifact filter's edit distance) over 1,048,576 seeded
+   patterns of 1-63 symbols with 15% spacers (``m = 1``, ``m = 63`` and an
+   all-spacer pattern among them), forward and reverse-complement, in seeded
+   texts of 20, 157, 1,869 and 5,070nt (the lengths of an adapter and of
+   human 5.8S, 18S and 28S rRNA): equal to the plain lanes on the card on
+   every lane and to the host uint64 lanes on the first 20,000;
 4. gate: dense against grouped K1, K2 and K4 at 8, 20, 48 and 96
    barcodes; the engine runs every kernel dense unless grouped is forced,
    so dense must be the faster mode of each; the dense kernels alone on
@@ -35,7 +41,21 @@ Phases, each fatal on failure (no phase catches its own error):
    c. ``tagdust -arch`` over a generated 1M-read 96-plex FASTQ with the
       flagship, the plate and R:N as candidates: detection on the card
       (K4), then the plate's demultiplex; the plate must win;
-   each prints its step mode and the launches of each kernel;
+   d. ``-ref``: the flagship library over 1M reads of which 5% carry, after
+      their barcode, a piece of one of the four contaminants (half
+      reverse-complemented, 0-2 substitutions), default flags but ``-fe 8``
+      (the extracted read keeps its 6 barcode positions as spacers, which
+      cost one edit each, so the default ``-fe 2`` cannot hit on a barcoded
+      architecture); ``td_myers`` must launch, the planted reads must leave
+      the barcode files and be counted under their contaminant, and the
+      first 20,000 reads must give ``-engine exact``'s artifact counts but
+      for reads that already decide apart without ``-ref``;
+   e. the label-carrying rows: the flagship's 1M reads with ``-start 1
+      -end 46`` (the barcode and 40nt of the read) at ``-Q 20``, and its
+      20,000-read cross-check against ``-engine exact``;
+   each prints its step mode and the launches of each kernel; a path that
+   streams in fewer than 3 windows, or that re-labelled a chunk one-shot
+   after a failed window, fails;
 6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
    ``-Q 20`` (a threshold of 0.0: with ``-Q`` the reference does not
    calibrate): the flagship, the 8-plex, and the ``-arch`` run (the same
@@ -55,7 +75,8 @@ The line before the last is the kernels' JSON record: per kernel its
 times, its launches on the main paths, and its bound on this card (the
 larger of the bytes it must move over 3.35 TB/s and the f32 operations the
 inputs need over 67 TFLOP/s, ``bound``; K3's path reads at 32-byte sector
-granularity); the last line is
+granularity; ``td_myers`` by its 32-bit integer instructions over 64 lanes
+an SM and clock, ``myers_bound``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -73,6 +94,7 @@ import time
 import numpy as np
 
 SOURCE = "tagdust_tpu_torch/engine/csrc/fused_dp.cu"
+MYERS_SOURCE = "tagdust_tpu_torch/engine/csrc/myers.cu"
 PK = "tagdust_tpu/engine/pallas_kernel.py"
 # (counter, name, Pallas kernel it replaces, model whose kernels-phase run
 # gives the row its numbers: the plate, the lattice of the main path with
@@ -85,6 +107,9 @@ KERNELS = [
     ("fwd_grouped", "td_fwd_grouped", f"{PK}:384", "plate"),
     ("score", "td_bwd_score", f"{PK}:369", "plate"),
     ("score_grouped", "td_bwd_score_grouped", f"{PK}:369", "plate"),
+    # the JAX package leaves this scan to XLA; its numbers come from the
+    # myers phase (every contaminant and both orientations in one launch)
+    ("myers", "td_myers", "tagdust_tpu/engine/myers_tpu.py:39", "myers"),
 ]
 # kernels-phase runs (model, grouped, full); K3 does not depend on the mode,
 # and the dense run, the main paths' mode, is the later one.  "spacer" is
@@ -99,6 +124,8 @@ HBM_RATE = 3.35e12
 F32_RATE = 67e12
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
+PHASES = ("kernels", "myers", "gate", "flagship", "8-plex", "arch", "ref", "sub",
+          "cross", "long")
 
 
 def fail(msg: str) -> None:
@@ -473,14 +500,152 @@ def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
             fail(f"gate {name}: grouped measured faster for {slower}")
 
 
+# td_myers: texts of the myers phase and contaminants of the -ref path (the
+# lengths of an adapter and of human 5.8S, 18S and 28S rRNA; the sequences
+# are not in the repository, so they are seeded), the patterns' count, and
+# the 32-bit integer instructions of one (read, text symbol) step, counted in
+# the SASS of ``myers_kernel``'s inner loop (``cuobjdump -sass`` of the sm_90a
+# build, nvcc 12.9): its four unrolled steps hold 72 LOP3, 16 SEL, 16 SHF, 8
+# IADD3, 5 ISETP, 4 VIMNMX and 2 VIADD, 123 in all.  Left out: 12 IMAD forms
+# (the shifts by one and the 64-bit add's high word), which run on the FMA
+# pipe beside the integer one, and 4 LDS, 3 uniform-datapath instructions
+# and the branch
+MYERS_TEXTS = (20, 157, 1869, 5070)
+MYERS_READS = 1 << 20
+MYERS_HOST_LANES = 20000
+MYERS_STEP_INSTRUCTIONS = 123 / 4
+INT32_LANES = 64 * 132  # 32-bit integer lanes of an SM, SMs of the card
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def contaminant_texts(seed: int) -> list:
+    rng = np.random.default_rng(seed + 77)
+    return [rng.integers(0, 4, n).astype(np.uint8) for n in MYERS_TEXTS]
+
+
+def myers_bound(B: int, n_orient: int, texts) -> dict:
+    """The least time the card could take for ``td_myers`` on these inputs:
+    the larger of its bytes (32 bytes of masks per read and orientation, 4
+    of length, the texts, 4 per distance written) over HBM_RATE and its
+    integer work, MYERS_STEP_INSTRUCTIONS 32-bit instructions per (read,
+    orientation, text symbol), over the 64 integer lanes of each of the 132
+    SMs at the card's highest clock."""
+    total = sum(int(t.shape[0]) for t in texts)
+    nbytes = B * (32 * n_orient + 4) + total + 4 * len(texts) * n_orient * B
+    ops = MYERS_STEP_INSTRUCTIONS * n_orient * B * total
+    tb = 1e3 * nbytes / HBM_RATE
+    to = 1e3 * ops / (INT32_LANES * sm_clock_hz())
+    return {"bound_ms": float(max(tb, to)),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def myers_patterns(seed: int, B: int):
+    """(fwd, rev, lens): seeded patterns [B, 63] of 1-63 symbols with 15%
+    spacers and their reverse-complements; lane 0 has ``m = 1``, lane 1
+    ``m = 63``, lane 2 is all spacers."""
+    from tagdust_tpu_torch.constants import REV_NUC_CODE, SPACER
+
+    rng = np.random.default_rng(seed + 31)
+    W = 63
+    lens = rng.integers(1, W + 1, B).astype(np.int32)
+    lens[:2] = (1, W)
+    fwd = rng.integers(0, 5, (B, W)).astype(np.uint8)
+    fwd[rng.random((B, W), dtype=np.float32) < 0.15] = SPACER
+    fwd[2] = SPACER
+    pos = np.arange(W, dtype=np.int32)[None, :]
+    valid = pos < lens[:, None]
+    fwd[~valid] = SPACER
+    rv = np.take_along_axis(fwd, np.clip(lens[:, None] - 1 - pos, 0, W - 1), axis=1)
+    rev = np.where(rv >= 5, SPACER, REV_NUC_CODE[np.minimum(rv, 4)]).astype(np.uint8)
+    rev[~valid] = SPACER
+    return fwd, rev, lens
+
+
+def phase_myers(seed: int, B: int = MYERS_READS) -> dict:
+    """``td_myers`` against the plain lanes on the card (every lane, every
+    text, both orientations) and the host uint64 lanes (the first
+    MYERS_HOST_LANES); times one launch over all texts and orientations, the
+    shape the ``-ref`` path gives it (median of 5), each text alone, and the
+    plain lanes (one pass)."""
+    import torch
+
+    from tagdust_tpu_torch import filters
+    from tagdust_tpu_torch.engine import myers
+
+    t0 = time.perf_counter()
+    fwd, rev, lens = myers_patterns(seed, B)
+    B4 = np.stack([filters._pattern_masks(fwd, lens), filters._pattern_masks(rev, lens)])
+    print(f"[myers] {B} patterns and their masks built on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    texts = contaminant_texts(seed)
+    dev = torch.device("cuda")
+    masks = myers.masks_tensor(B4, dev)
+    m = torch.from_numpy(lens).to(dev)
+    k = myers.bpm_batch(texts, masks, m)
+    torch.cuda.synchronize()
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    plain = torch.stack([
+        torch.stack([myers.bpm_batch_plain(t, masks[o], m) for o in range(2)])
+        for t in texts])
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err = int((k - plain).abs().max())
+    lanes = int((k != plain).sum())
+    n = MYERS_HOST_LANES
+    host_apart = 0
+    for c, t in enumerate(texts):
+        for o in range(2):
+            host = filters._bpm_batch(t, B4[o, :n], lens[:n])
+            host_apart += int((k[c, o, :n].cpu().numpy() != host).sum())
+    print(f"[myers] td_myers against the plain lanes on the card: {lanes} of "
+          f"{k.numel()} distances differ (max |d| {err}); against the host uint64 "
+          f"lanes on the first {n} reads: {host_apart} differ; m=1, m=63 and "
+          f"all-spacer lanes at {MYERS_TEXTS[-1]}nt: "
+          f"{k[-1, 0, :3].tolist()}", flush=True)
+    if lanes or host_apart:
+        fail("td_myers disagrees with its plain version or the host lanes")
+
+    text, offs = myers.text_tensors(texts, dev)
+    ms = timed(lambda: myers.bpm_batch_cuda(text, offs, masks, m))
+    res = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": float(err),
+           **myers_bound(B, 2, texts)}
+    for t in texts:
+        one, o1 = myers.text_tensors([t], dev)
+        bd = myers_bound(B, 2, [t])
+        print(f"[myers] text of {t.shape[0]}nt, both orientations: kernel "
+              f"{timed(lambda: myers.bpm_batch_cuda(one, o1, masks, m)):.3f} ms, "
+              f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']})", flush=True)
+    print(f"[myers] all {len(texts)} texts x 2 orientations over B={B} in one launch: "
+          f"kernel {ms:.3f} ms  plain {plain_ms:.1f} ms (one pass)  bound "
+          f"{res['bound_ms']:.3f} ms ({res['bound_by']}: {MYERS_STEP_INSTRUCTIONS:.2f} "
+          f"32-bit integer instructions a step at {sm_clock_hz() / 1e6:.0f} MHz)",
+          flush=True)
+    return res
+
+
 BARCODE_SUB = 0.05
 
 
 def write_fastq(path: str, n: int, seed: int, barcodes,
-                lengths: tuple = (50, 60)) -> np.ndarray:
+                lengths: tuple = (50, 60), plant=None):
     """90% of reads: a barcode of the set (5% substitutions) then a random
     insert, ``lengths`` (50-60nt) in all; 10% random reads.  Returns the
-    true barcode index of each read (-1 for random reads)."""
+    true barcode index of each read (-1 for random reads).  With ``plant``
+    (texts), 5% of the reads, all barcoded, carry after their barcode a
+    piece of one of the texts long enough to hold it (half
+    reverse-complemented, 0-2 substitutions); then returns (truth, planted)
+    with the text's index per read, -1 for none."""
     rng = np.random.default_rng(seed)
     L = lengths[1]
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -494,6 +659,21 @@ def write_fastq(path: str, n: int, seed: int, barcodes,
     noise = rng.random(head.shape) < BARCODE_SUB
     head[noise] = alpha[rng.integers(0, 4, int(noise.sum()))]
     seq[has, : bc.shape[1]] = head
+    planted = np.full(n, -1, dtype=np.int64)
+    if plant is not None:
+        nb = bc.shape[1]
+        fits = [j for j, t in enumerate(plant) if t.shape[0] >= L - nb]
+        comp = np.frombuffer(b"TGCA", dtype=np.uint8)
+        for i in np.nonzero(has & (rng.random(n) < 0.05 / 0.9))[0]:
+            j = fits[int(rng.integers(len(fits)))]
+            w = int(lens[i]) - nb
+            s0 = int(rng.integers(0, plant[j].shape[0] - w + 1))
+            piece = plant[j][s0 : s0 + w]
+            piece = comp[piece[::-1]] if rng.random() < 0.5 else alpha[piece]
+            for _ in range(int(rng.integers(0, 3))):
+                piece[int(rng.integers(w))] = alpha[int(rng.integers(4))]
+            seq[i, nb : nb + w] = piece
+            planted[i] = j
     with open(path, "wb", buffering=1 << 24) as fh:
         step = 100000
         for s in range(0, n, step):
@@ -502,7 +682,7 @@ def write_fastq(path: str, n: int, seed: int, barcodes,
                 r = seq[i, : lens[i]].tobytes()
                 parts.append(b"@r%d\n%s\n+\n%s\n" % (i, r, b"I" * lens[i]))
             fh.write(b"".join(parts))
-    return truth
+    return truth if plant is None else (truth, planted)
 
 
 def read_names(path: str) -> np.ndarray:
@@ -551,16 +731,18 @@ def run_path(name: str, args, expect) -> dict:
     just before it and read just after; every kernel in ``expect`` (the
     counters of the kernels the path runs, in the engine's step mode) must
     have launched, and no plain version may have run on CUDA tensors."""
-    from tagdust_tpu_torch import controller
+    from tagdust_tpu_torch import controller, filters
     from tagdust_tpu_torch.engine import fused_kernel, runner, scan
 
     for k in fused_kernel.LAUNCHES:
         fused_kernel.LAUNCHES[k] = 0
     scan.PLAIN_CUDA_CALLS["count"] = 0
-    runner.STREAM_STATS["windows"] = 0
+    runner.STREAM_STATS.update(windows=0, oneshot_after_failure=0)
+    filters.REF_TIMINGS.update(calls=0, gather_s=0.0, masks_s=0.0, lanes_s=0.0)
     wall = run_tagdust(args)
     launches = dict(fused_kernel.LAUNCHES)
     windows = runner.STREAM_STATS["windows"]
+    oneshot = runner.STREAM_STATS["oneshot_after_failure"]
     plain = scan.PLAIN_CUDA_CALLS["count"]
     cal = controller.TIMINGS["calibration"]
     det = controller.TIMINGS["detection"]
@@ -573,10 +755,13 @@ def run_path(name: str, args, expect) -> dict:
         fail(f"{name}: kernels of the path never launched: {missing}")
     if windows < 3:
         fail(f"{name}: only {windows} streaming windows")
+    if oneshot:
+        fail(f"{name}: {oneshot} chunks were re-labelled one-shot after a streaming "
+             "window failed")
     if plain:
         fail(f"{name}: plain versions ran {plain} times on CUDA tensors")
     return {"wall_s": wall, "detection_s": det, "calibration_s": cal,
-            "launches": launches}
+            "launches": launches, "ref": dict(filters.REF_TIMINGS)}
 
 
 def check_output(name: str, out: str, bcs, truth) -> None:
@@ -618,19 +803,130 @@ def path_kernels(name: str, bcs) -> list:
     return ["bwd" + m, "fwd" + m, "tb"]
 
 
-def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str) -> dict:
-    """A default-flag ``tagdust -1 B:<bcs> -2 R:N -engine cuda`` run."""
+def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str,
+               flags=(), plant=None) -> dict:
+    """A ``tagdust -1 B:<bcs> -2 R:N -engine cuda`` run over a generated
+    FASTQ: default flags, or with ``flags`` added."""
     fq = os.path.join(tmp, f"{name}.fq")
     t0 = time.perf_counter()
-    truth = write_fastq(fq, n_reads, seed, bcs)
+    truth = write_fastq(fq, n_reads, seed, bcs, plant=plant)
+    truth, planted = truth if plant is not None else (truth, None)
     print(f"[{name}] generated {n_reads} reads in {time.perf_counter() - t0:.1f} s",
           flush=True)
     out = os.path.join(tmp, f"{name}_out")
     res = run_path(name, ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-o", out,
-                          "-engine", "cuda"], path_kernels(name, bcs))
+                          "-engine", "cuda", *flags],
+                   path_kernels(name, bcs) + (["myers"] if plant is not None else []))
     print(f"[{name}] {n_reads / res['wall_s']:.0f} reads/s", flush=True)
     check_output(name, out, bcs, truth)
-    return dict(res, fq=fq)
+    return dict(res, fq=fq, out=out, truth=truth, planted=planted)
+
+
+# -fe of the -ref path: the extracted read keeps its barcode positions as
+# spacers, which match nothing and cost an edit each (6 here), and the
+# planted pieces carry up to 2 substitutions
+REF_FE = 8
+
+
+def write_contaminants(tmp: str, texts) -> tuple:
+    """(path of a FASTA file of ``texts``, their names)."""
+    names = [f"contaminant{j}_{t.shape[0]}nt" for j, t in enumerate(texts)]
+    fa = os.path.join(tmp, "contam.fa")
+    with open(fa, "w") as fh:
+        for nm, t in zip(names, texts):
+            fh.write(f">{nm}\n{''.join('ACGT'[c] for c in t)}\n")
+    return fa, names
+
+
+def artifact_counts(prefix: str, names) -> dict:
+    """{contaminant name: reads counted under it} and the total ("all"),
+    from a run's log."""
+    out = {n: 0 for n in names}
+    with open(f"{prefix}_logfile.txt") as fh:
+        for ln in fh:
+            f = ln.rstrip("\n").split("\t")
+            if len(f) >= 3 and f[2].startswith("match artifacts"):
+                out["all"] = int(f[1])
+            elif len(f) >= 3 and f[2] in out and f[1].isdigit():
+                out[f[2]] = int(f[1])
+    return out
+
+
+def phase_ref(bcs, seed: int, n_reads: int, tmp: str) -> dict:
+    """The ``-ref`` path (5d): the flagship library over reads of which 5%
+    carry a piece of a contaminant, default flags but ``-fe 8``; then the
+    first 20,000 reads on ``-engine cuda`` and ``-engine exact``, with and
+    without ``-ref``, at ``-Q 20``."""
+    texts = contaminant_texts(seed)
+    fa, names = write_contaminants(tmp, texts)
+    flags = ["-ref", fa, "-fe", str(REF_FE)]
+    r = phase_main("ref", bcs, seed + 3, n_reads, tmp, flags, plant=texts)
+    rt = r["ref"]
+    inside = rt["gather_s"] + rt["masks_s"] + rt["lanes_s"]
+    print(f"[ref] {r['wall_s']:.2f} s wall; inside match_to_reference_columnar "
+          f"{inside:.2f} s over {rt['calls']} calls: host gather of the patterns "
+          f"{rt['gather_s']:.2f} s, host mask building {rt['masks_s']:.2f} s, device "
+          f"(upload, td_myers, fetch) {rt['lanes_s']:.2f} s; td_myers launches "
+          f"{r['launches']['myers']}", flush=True)
+    planted = r["planted"]
+    got = outcomes(r["out"], bcs, n_reads)
+    counts = artifact_counts(r["out"], names)
+    n_planted = np.bincount(planted[planted >= 0], minlength=len(texts))
+    kept = int(((planted >= 0) & (got >= 0)).sum())
+    print(f"[ref] planted reads per contaminant {dict(zip(names, n_planted.tolist()))}; "
+          f"counted as artifacts {counts}; planted reads left in a barcode file: "
+          f"{kept} of {int((planted >= 0).sum())}", flush=True)
+    if kept > 1e-3 * (planted >= 0).sum():
+        fail("ref: more than 0.1% of the planted reads stayed in a barcode file")
+    for nm, want in zip(names, n_planted):
+        # a planted read is counted once its barcode was extracted; none else
+        if counts[nm] > want or counts[nm] < 0.9 * want:
+            fail(f"ref: {counts[nm]} reads counted under {nm}, {want} planted")
+    if counts["all"] != sum(counts[nm] for nm in names):
+        fail(f"ref: artifact counts do not add up: {counts}")
+
+    n = 20000
+    head = head_fastq(r["fq"], os.path.join(tmp, "ref_head.fq"), n)
+    res, cnt = {}, {}
+    for eng in ("cuda", "exact"):
+        for ref in (True, False):
+            prefix = os.path.join(tmp, f"ref_x_{eng}_{int(ref)}")
+            run_tagdust(["-1", f"B:{','.join(bcs)}", "-2", "R:N", head, "-o", prefix,
+                         "-Q", str(CROSS_Q), "-engine", eng, *(flags if ref else [])])
+            res[eng, ref] = outcomes(prefix, bcs, n)
+            if ref:
+                cnt[eng] = artifact_counts(prefix, names)
+    apart = {ref: set(np.nonzero(res["cuda", ref] != res["exact", ref])[0].tolist())
+             for ref in (True, False)}
+    print(f"[ref] cross-check on {n} reads at -Q {CROSS_Q}: artifact counts cuda "
+          f"{cnt['cuda']}, exact {cnt['exact']}; reads that decide apart with -ref "
+          f"{sorted(apart[True])}, without {sorted(apart[False])}", flush=True)
+    if not apart[True] <= apart[False]:
+        fail("ref: reads decide apart from -engine exact only with -ref: "
+             f"{sorted(apart[True] - apart[False])}")
+    for nm in names + ["all"]:
+        if abs(cnt["cuda"][nm] - cnt["exact"][nm]) > len(apart[False]):
+            fail(f"ref: {nm} counts differ from -engine exact by more than the reads "
+                 "that decide apart without -ref")
+    if cnt["cuda"]["all"] < 0.03 * n:
+        fail("ref: the cross-check's reads hold too few artifacts to compare")
+    return r
+
+
+# the label-carrying path: -start/-end over the barcode and 40nt of the read
+SUB_FLAGS = ("-start", "1", "-end", "46")
+
+
+def phase_sub(bcs, fq: str, truth, n_reads: int, tmp: str) -> dict:
+    """The label-carrying rows (5e): the flagship's FASTQ with ``-start 1
+    -end 46`` at ``-Q 20``."""
+    out = os.path.join(tmp, "sub_out")
+    res = run_path("sub", ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-o", out,
+                           "-engine", "cuda", *SUB_FLAGS, "-Q", str(CROSS_Q)],
+                   path_kernels("sub", bcs))
+    print(f"[sub] {n_reads / res['wall_s']:.0f} reads/s", flush=True)
+    check_output("sub", out, bcs, truth)
+    return res
 
 
 def write_candidates(tmp: str, sets: dict) -> str:
@@ -826,7 +1122,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=1_000_000)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run instead of all of them ("
+                    + ", ".join(PHASES) + "); the last line then says so")
     args = ap.parse_args()
+    only = [p for p in args.only.split(",") if p]
+    if set(only) - set(PHASES):
+        ap.error(f"--only takes {', '.join(PHASES)}")
+    on = lambda phase: not only or phase in only  # noqa: E731
 
     import torch
 
@@ -855,58 +1158,84 @@ def main() -> int:
     torch.cuda.init()
 
     sets = barcode_sets()
-    models = {name: CudaEngine(library_model(b), "cuda") for name, b in sets.items()}
-    kmodels = dict(models, **{
-        "R:N": CudaEngine(library_model([]), "cuda"),
-        "spacer": CudaEngine(library_model(sets["plate"], spacer=spacer()), "cuda")})
     timing = {}  # (counter, model) -> measurements
-    for name, grouped, full in KERNEL_RUNS:
-        for key, r in phase_kernels(kmodels[name], grouped, args.seed, full).items():
-            timing[key, name] = r
-    phase_k3_long(kmodels["flagship"], args.seed)
+    if on("kernels") or on("gate"):
+        models = {name: CudaEngine(library_model(b), "cuda") for name, b in sets.items()}
+        kmodels = dict(models, **{
+            "R:N": CudaEngine(library_model([]), "cuda"),
+            "spacer": CudaEngine(library_model(sets["plate"], spacer=spacer()), "cuda")})
+    if on("kernels"):
+        for name, grouped, full in KERNEL_RUNS:
+            for key, r in phase_kernels(kmodels[name], grouped, args.seed, full).items():
+                timing[key, name] = r
+        phase_k3_long(kmodels["flagship"], args.seed)
+    if on("myers"):
+        timing["myers", "myers"] = phase_myers(args.seed)
     print(f"kernel times above on: {card}", flush=True)
-    phase_gate(dict(models, spacer=kmodels["spacer"]), args.seed)
-    print(f"gate times above on: {card}", flush=True)
-    del models, kmodels
+    if on("gate"):
+        phase_gate(dict(models, spacer=kmodels["spacer"]), args.seed)
+        print(f"gate times above on: {card}", flush=True)
+    models = kmodels = None
     torch.cuda.empty_cache()
 
     launches = {k: 0 for k, *_ in KERNELS}
+    paths = {}
     tmp = tempfile.mkdtemp(prefix="tagdust_smoke_")
     try:
-        m = phase_main("flagship", sets["flagship"], args.seed, args.reads, tmp)
-        small = phase_main("8-plex", sets["8"], args.seed, SMALL_READS, tmp)
-        arch = phase_arch(sets, args.seed, args.reads, tmp)
-        for r in (m, small, arch):
+        if on("flagship") or on("sub"):
+            paths["flagship"] = phase_main("flagship", sets["flagship"], args.seed,
+                                           args.reads, tmp)
+        if on("8-plex"):
+            paths["8-plex"] = phase_main("8-plex", sets["8"], args.seed, SMALL_READS, tmp)
+        if on("arch"):
+            paths["arch"] = phase_arch(sets, args.seed, args.reads, tmp)
+        if on("ref"):
+            paths["ref"] = phase_ref(sets["flagship"], args.seed, args.reads, tmp)
+        if on("sub"):
+            m = paths["flagship"]
+            paths["sub"] = phase_sub(sets["flagship"], m["fq"], m["truth"], args.reads,
+                                     tmp)
+        for r in paths.values():
             for k in launches:
                 launches[k] += r["launches"][k]
-        print(f"launches on the three main paths: {launches}", flush=True)
+        print(f"launches on the main paths {list(paths)}: {launches}", flush=True)
         print(f"main path times above on: {card}", flush=True)
-        for name, r in (("flagship", m), ("8-plex", small)):
-            bcs = sets["flagship" if name == "flagship" else "8"]
-            phase_cross(name, r["fq"], tmp, ["-1", f"B:{','.join(bcs)}", "-2", "R:N"],
-                        bcs, torch_leg=True)
-        phase_cross("arch", arch["fq"], tmp, ["-arch", arch["cands"]],
-                    sets["plate"])
-        phase_long(sets["plate"], args.seed, tmp)
-        print(f"long-read times above on: {card}", flush=True)
+        if on("cross"):
+            for name in ("flagship", "8-plex"):
+                if name in paths:
+                    bcs = sets["flagship" if name == "flagship" else "8"]
+                    phase_cross(name, paths[name]["fq"], tmp,
+                                ["-1", f"B:{','.join(bcs)}", "-2", "R:N"], bcs,
+                                torch_leg=True)
+            if "arch" in paths:
+                phase_cross("arch", paths["arch"]["fq"], tmp,
+                            ["-arch", paths["arch"]["cands"]], sets["plate"])
+            if "sub" in paths:
+                bcs = sets["flagship"]
+                phase_cross("sub", paths["flagship"]["fq"], tmp,
+                            ["-1", f"B:{','.join(bcs)}", "-2", "R:N", *SUB_FLAGS], bcs)
+        if on("long"):
+            phase_long(sets["plate"], args.seed, tmp)
+            print(f"long-read times above on: {card}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if min(launches[k] for k in ("bwd", "fwd", "tb", "score")) <= 0:
-        fail(f"a dense kernel launched on no main path: {launches}")
+    if not only and min(launches[k] for k in ("bwd", "fwd", "tb", "score", "myers")) <= 0:
+        fail(f"a kernel launched on no main path: {launches}")
 
     # no single PyTorch call computes these recurrences: library_ms is null
     rec = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
+        {"name": name, "route": "cuda",
+         "source": MYERS_SOURCE if key == "myers" else SOURCE, "replaces": rep,
          "launches": launches[key], **{f: timing[key, model][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None}
-        for key, name, rep, model in KERNELS
+        for key, name, rep, model in KERNELS if (key, model) in timing
     ]}
     print(card_line())
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}, **({"only": only} if only else {})}))
     return 0
 
 

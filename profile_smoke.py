@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in two main paths of tagdust_tpu_torch, on one CUDA card.
+"""Where the time goes in three main paths of tagdust_tpu_torch, on one CUDA card.
 
-    python3 profile_smoke.py [--seed N] [--reads N] [--out DIR]
+    python3 profile_smoke.py [--seed N] [--reads N] [--out DIR] [--paths P,...]
 
-For the flagship (``-1 B:<20 x 6nt> -2 R:N``) and the ``-arch`` run over a
-96-plex FASTQ (the candidates of ``chip_smoke.py``), each on a FASTQ that
-``chip_smoke.write_fastq`` generates: one warm-up run (host libraries and
+For the flagship (``-1 B:<20 x 6nt> -2 R:N``), the ``-arch`` run over a
+96-plex FASTQ (the candidates of ``chip_smoke.py``) and the flagship's
+``-ref`` run (``chip_smoke.py``'s contaminants, 5% of the reads planted,
+``-fe 8``; it also prints the artifact filter's host and device seconds),
+each on a FASTQ that ``chip_smoke.write_fastq`` generates: one warm-up run (host libraries and
 kernels built), two unprofiled runs (wall, detection and calibration from
 ``controller.TIMINGS``), then one run under ``torch.profiler``.  Prints the
 device time and launches of every device op of the profiled run, the
@@ -62,9 +64,10 @@ def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tagdust_tpu_torch import controller
+    from tagdust_tpu_torch import controller, filters
 
     def run(k: int) -> float:
+        filters.REF_TIMINGS.update(calls=0, gather_s=0.0, masks_s=0.0, lanes_s=0.0)
         return cs.run_tagdust([*args, "-o", os.path.join(tmp, f"{name}_{k}"),
                                "-engine", "cuda"])
 
@@ -74,6 +77,11 @@ def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
         print(f"[{name}] unprofiled run {k}: {wall:.2f} s wall, detection "
               f"{controller.TIMINGS['detection']:.2f} s, calibration "
               f"{controller.TIMINGS['calibration']:.2f} s", flush=True)
+        if "-ref" in args:
+            rt = filters.REF_TIMINGS
+            print(f"[{name}]   artifact filter, {rt['calls']} calls: host gather "
+                  f"{rt['gather_s']:.2f} s, host masks {rt['masks_s']:.2f} s, device "
+                  f"(upload, td_myers, fetch) {rt['lanes_s']:.2f} s", flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run(3)
         torch.cuda.synchronize()
@@ -91,7 +99,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=1_000_000)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--paths", default="flagship,arch,ref")
     args = ap.parse_args()
+    paths = args.paths.split(",")
 
     import torch
 
@@ -101,15 +111,25 @@ def main() -> int:
     sets = cs.barcode_sets()
     tmp = tempfile.mkdtemp(prefix="tagdust_profile_")
     try:
-        fq = os.path.join(tmp, "flagship.fq")
-        cs.write_fastq(fq, args.reads, args.seed, sets["flagship"])
-        profile_path("flagship", ["-1", f"B:{','.join(sets['flagship'])}", "-2",
-                                  "R:N", fq], tmp, args.out)
-        os.remove(fq)
-        fq = os.path.join(tmp, "plate.fq")
-        cs.write_fastq(fq, args.reads, args.seed + 1, sets["plate"])
-        profile_path("arch", ["-arch", cs.write_candidates(tmp, sets), fq], tmp,
-                     args.out)
+        flagship = ["-1", f"B:{','.join(sets['flagship'])}", "-2", "R:N"]
+        if "flagship" in paths:
+            fq = os.path.join(tmp, "flagship.fq")
+            cs.write_fastq(fq, args.reads, args.seed, sets["flagship"])
+            profile_path("flagship", [*flagship, fq], tmp, args.out)
+            os.remove(fq)
+        if "arch" in paths:
+            fq = os.path.join(tmp, "plate.fq")
+            cs.write_fastq(fq, args.reads, args.seed + 1, sets["plate"])
+            profile_path("arch", ["-arch", cs.write_candidates(tmp, sets), fq], tmp,
+                         args.out)
+            os.remove(fq)
+        if "ref" in paths:
+            texts = cs.contaminant_texts(args.seed)
+            fq = os.path.join(tmp, "ref.fq")
+            cs.write_fastq(fq, args.reads, args.seed + 3, sets["flagship"], plant=texts)
+            fa = cs.write_contaminants(tmp, texts)[0]
+            profile_path("ref", [*flagship, fq, "-ref", fa, "-fe", str(cs.REF_FE)],
+                         tmp, args.out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"times above on: {cs.card_line()}")

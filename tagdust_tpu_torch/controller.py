@@ -11,7 +11,10 @@ summary), with three changes:
    detection runs the port's ``detect.test_architectures``, which scores
    the candidates on that engine (K4 on the card for ``-engine cuda``);
 2. ``-multihost`` raises ``NotImplementedError`` (not ported yet);
-3. the artifact filter (``-ref``) runs the host Myers path.
+3. the artifact filter (``-ref``) runs Myers' edit distance on the run's
+   engine: the ``td_myers`` kernel on the card for ``-engine cuda``, its
+   plain version on CPU tensors for ``-engine torch``, the host lanes for
+   ``-engine exact`` (``engine/myers.py``, ``filters._reference_hits``).
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use ``nvcc`` compiles the sources for ``sm_90a`` into a shared
-library with a plain C interface under ``build/tagdust_tpu_torch/`` beside
-the package (git-ignored), named by a hash of the sources so that an edit
-rebuilds.  ``ctypes`` loads it.  Every C entry point returns
-``cudaGetLastError()``; ``check`` raises on anything but 0, so a refused or
-failed launch never passes silently.
+At first use ``nvcc`` compiles the sources for ``sm_90a`` (one ``nvcc`` per
+source, all started together) and links them into a shared library with a
+plain C interface under ``build/tagdust_tpu_torch/`` beside the package
+(git-ignored), named by a hash of the sources so that an edit rebuilds.
+``ctypes`` loads it.  Every C entry point returns ``cudaGetLastError()``;
+``check`` raises on anything but 0, so a refused or failed launch never
+passes silently.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ BUILD_DIR = os.path.join(
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -61,15 +62,36 @@ def build(verbose: bool = False) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate() for p in procs]
+    try:
+        for src, p, (out, err) in zip(_sources(), procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {os.path.basename(src)} ({p.returncode}):"
+                    f"\n{out}\n{err}"
+                )
+            if verbose and err:
+                print(err, flush=True)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link ({link.returncode}):\n{link.stdout}\n"
+                f"{link.stderr}"
+            )
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
     return so
 
@@ -87,8 +109,9 @@ def lib():
     L.td_fwd.argtypes = [P] * 21 + [I] * 14 + [P]
     L.td_tb.argtypes = [P, P, P] + [I] * 5 + [P]
     L.td_blocks_per_sm.argtypes = [I] * 10 + [P, I]
+    L.td_myers.argtypes = [P, P, I, P, I, P, P, I, P]
     for fn in (L.td_reads_per_block, L.td_bwd, L.td_bwd_score, L.td_fwd, L.td_tb,
-               L.td_blocks_per_sm):
+               L.td_blocks_per_sm, L.td_myers):
         fn.restype = I
     _lib = L
     return L

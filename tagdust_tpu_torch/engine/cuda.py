@@ -11,6 +11,10 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
 * ``dispatch_decided`` — the streaming decided mode (rows parsed by
   ``decided.collect_decided``):
   labels stay on the device, the host receives Lp/8+25 bytes per read;
+* ``dispatch_packed``  — the streaming label-carrying mode (rows parsed by
+  ``collect_packed``) for sub-range decodes (``-start/-end``) and
+  fingerprints past 27nt, which the host extractor decides: one uint8 row
+  per read, its labels, the four scores and both DUST variants;
 * ``backward_scores``  — logP_b only, for architecture detection (K4).
 
 The engine runs on ``device``: ``cuda`` launches the hand-written kernels,
@@ -80,6 +84,7 @@ class BatchResult:
     bar_prob: np.ndarray  # [B] log barcode probability
     labels: Optional[np.ndarray]  # [B, Lp+1] label path, slot 0 = 0
     mapq: np.ndarray  # [B] Q
+    dust: Optional[np.ndarray] = None  # [B, 2] DUST (extracted, raw)
 
 
 class CudaEngine:
@@ -119,28 +124,37 @@ class CudaEngine:
         bt = os.environ.get("TAGDUST_TPU_BT")
         return max(int(bt) // 8 * 8, 8) if bt else 256
 
-    def launch_bytes(self, B: int, Lp: int) -> int:
+    def launch_bytes(self, B: int, Lp: int, packed: bool = False) -> int:
         """Device bytes of the per-read buffers of one fused launch over B
         reads padded to Lp: K1's stack and log scales ((Lp+1) * (S+1) * 4;
         S states wide in both step modes), K2's path (Lp * H, its rows
         padded to ``path_pitch``), dpfin, tp, the scores, the labels (int32
-        from K3 and their narrow copy) and the reads."""
+        from K3 and their narrow copy) and the reads; with ``packed`` also
+        the label-carrying row of ``dispatch_packed``."""
         S, K = self.lat.S, int(self.tables["K"])
         H = int(self.tables["tmat"].shape[0])
         per_read = ((Lp + 1) * (S + 1) * 4 + (Lp + 1) * (4 + self._lab_bytes())
                     + 4 * (H + K + 4) + Lp)
+        if packed:
+            per_read += self.packed_row_bytes(Lp)
         path = path_pitch(B) * Lp * H * scan.path_dtype(H).itemsize
         return B * per_read + path
 
-    def reads_within(self, Lp: int, budget: int) -> int:
+    def reads_within(self, Lp: int, budget: int, packed: bool = False) -> int:
         """The most reads of Lp whose launch stays inside ``budget`` bytes
         (0 if one read does not)."""
-        b = budget * 16 // self.launch_bytes(16, Lp)  # within 16 of the answer
-        while self.launch_bytes(b + 1, Lp) <= budget:
+        nbytes = lambda b: self.launch_bytes(b, Lp, packed)  # noqa: E731
+        b = budget * 16 // nbytes(16)  # within 16 of the answer
+        while nbytes(b + 1) <= budget:
             b += 1
-        while b > 0 and self.launch_bytes(b, Lp) > budget:
+        while b > 0 and nbytes(b) > budget:
             b -= 1
         return b
+
+    def packed_row_bytes(self, Lp: int) -> int:
+        """Bytes of one label-carrying row: the labels, f, r, bar, q and the
+        two DUST scores."""
+        return self._lab_bytes() * (Lp + 1) + 24
 
     def required_finger_len(self) -> int:
         from ..extract import required_finger_length
@@ -186,7 +200,7 @@ class CudaEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _full(self, seqs: torch.Tensor, lens: torch.Tensor):
+    def _full(self, seqs: torch.Tensor, lens: torch.Tensor, packed: bool = False):
         """Fused kernels + scoring epilogue (tpu.py _get_pallas.full)."""
         B, Lp = seqs.shape
         if Lp > LONG_READ_NT:
@@ -196,7 +210,7 @@ class CudaEngine:
                 f"{'CUDA kernels' if seqs.is_cuda else 'plain versions'} in "
                 f"sub-batches whose buffers stay inside {self.STACK_BYTES} bytes",
             )
-        nbytes = self.launch_bytes(B, Lp)
+        nbytes = self.launch_bytes(B, Lp, packed)
         if nbytes > LAUNCH_STATS["bytes"]:
             LAUNCH_STATS.update(reads=B, bytes=nbytes)
         f_log, _, labels, tp = self.scorer(seqs, lens)
@@ -290,3 +304,31 @@ class CudaEngine:
             s, ln, labels, q, thr32, minlen, self._dec_tables,
             self.required_finger_len(),
         )
+
+    def dispatch_packed(self, seqs: np.ndarray, lens: np.ndarray) -> torch.Tensor:
+        """Enqueue one label-carrying window; returns its rows on the device
+        without waiting (tpu.py dispatch_pallas / _get_pallas_packed): one
+        uint8 row per read, ``labels (lab_bytes * (Lp + 1)) | f, r, bar, q,
+        dust_extracted, dust_raw`` (6 f32)."""
+        B = seqs.shape[0]
+        s = self._upload(seqs.astype(np.uint8))
+        ln = self._upload(lens.astype(np.int32))
+        f, r, bar, labels, q = self._full(s, ln, packed=True)
+        dust = D.dust_scores(s, labels, ln, self._dec_tables["is_r_full"])
+        sc = torch.cat([torch.stack([f, r, bar, q], dim=1).float(), dust], dim=1)
+        return torch.cat(
+            [labels.contiguous().view(torch.uint8).reshape(B, -1),
+             sc.contiguous().view(torch.uint8).reshape(B, 24)], dim=1)
+
+    def collect_packed(self, rows, n: int, Lp: int) -> BatchResult:
+        """Parse one fetched window of label-carrying rows back to host
+        arrays (tpu.py collect_pallas)."""
+        a = np.asarray(rows)[:n]
+        lab_bytes = self._lab_bytes()
+        lw = lab_bytes * (Lp + 1)
+        labs = np.ascontiguousarray(a[:, :lw])
+        labels = (labs.view(np.int8) if lab_bytes == 1
+                  else labs.view(np.int32).reshape(n, Lp + 1))
+        sc = np.ascontiguousarray(a[:, lw : lw + 24]).view(np.float32)
+        return BatchResult(sc[:, 0], sc[:, 1], sc[:, 2], labels, sc[:, 3],
+                           sc[:, 4:6])

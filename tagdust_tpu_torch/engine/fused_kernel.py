@@ -16,8 +16,9 @@ dense mode the non-zero tables of its step matrix (``tables.sparse_tables``
 of ``Ab`` for K1 and K4, of ``Af`` for K2), staged where they fit beside
 the carries.  The plain versions read the dense matrices.
 
-``LAUNCHES`` counts kernel launches per kernel and mode, so a run can show
-that its main path went through the kernels.
+``LAUNCHES`` counts kernel launches per kernel and mode (and those of
+``td_myers``, ``engine/myers.py``), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from . import scan
 from .tables import label_tables, sparse_tables, staged_tables
 
 LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0, "bwd_grouped": 0, "fwd_grouped": 0,
-            "score": 0, "score_grouped": 0}
+            "score": 0, "score_grouped": 0, "myers": 0}
 
 # the plain versions' tables; the kernels read theirs from the blobs
 _TABLES = ("Afwd", "Abwd", "end", "Lmap", "ent_state", "tmat")

@@ -37,8 +37,9 @@ KINDS = ("auto", "exact") + DEVICE_KINDS
 
 _ENGINE_CACHE: dict = {}
 
-# streaming windows labelled by the decided-mode loop since the last reset
-STREAM_STATS = {"windows": 0}
+# streaming windows labelled since the last reset, and chunks whose streaming
+# failed before its first window and went to the one-shot path
+STREAM_STATS = {"windows": 0, "oneshot_after_failure": 0}
 
 
 def resolve_engine(param) -> str:
@@ -244,6 +245,20 @@ def _score_batch_exact(mb, batch, matchstart, matchend):
     return labels_out
 
 
+def _subrange_matrix(batch, s: int, e: int, matchstart: int, matchend: int,
+                     width: int) -> np.ndarray:
+    """[e - s, width] uint8: positions matchstart..matchend of reads s..e
+    gathered from the arena, 0 past the window or the read's end."""
+    full_lens = batch.lens[s:e]
+    off = batch.seq_off[s:e] + matchstart
+    w = np.clip(np.minimum(full_lens, matchend) - matchstart, 0, None)
+    pos = np.arange(width, dtype=np.int64)[None, :]
+    cap = max(batch.seq_arena.shape[0] - 1, 0)
+    seqs = batch.seq_arena[np.minimum(off[:, None] + pos, cap)].copy()
+    seqs[pos >= w[:, None]] = 0
+    return seqs
+
+
 def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
     """One-shot scoring of a columnar ReadBatch; fills batch.mapq and
     returns the [B, Lpad+1] label matrix."""
@@ -254,14 +269,9 @@ def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
     B = batch.B
     full_lens = batch.lens
     if matchstart != -1 or matchend != -1:
-        dec = np.full(B, matchend - matchstart, dtype=np.int64)
-        w = np.clip(np.minimum(full_lens, matchend) - matchstart, 0, None)
-        off = batch.seq_off[:-1] + matchstart
-        pos = np.arange(int(dec.max(initial=1)), dtype=np.int64)[None, :]
-        cap = max(batch.seq_arena.shape[0] - 1, 0)
-        seqs = batch.seq_arena[np.minimum(off[:, None] + pos, cap)].copy()
-        seqs[pos >= w[:, None]] = 0
-        lens = dec.astype(np.int32)
+        seqs = _subrange_matrix(batch, 0, B, matchstart, matchend,
+                                matchend - matchstart if B else 1)
+        lens = np.full(B, matchend - matchstart, dtype=np.int32)
     else:
         Lmax = int(full_lens.max(initial=1))
         seqs = padded_matrix(batch.seq_arena, batch.seq_off, full_lens, Lmax, 0)
@@ -273,28 +283,32 @@ def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
 
 
 def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
-    """Pipelined decided-mode labelling: windows of at most 16,384 reads,
-    up to DEPTH in flight; the host applies window k's decisions while the
-    device scores k+1..k+DEPTH.  Returns False when the decided-mode gate is
-    off, the chunk fits one window, or a window of the batch granularity
+    """Pipelined labelling: windows of at most 16,384 reads, up to DEPTH in
+    flight; the host applies window k's results while the device scores
+    k+1..k+DEPTH.  The decided mode (the extraction decisions made on the
+    device, ``dispatch_decided``) where it applies; sub-range decodes
+    (``-start/-end``) and fingerprints past 27nt, which the host extractor
+    decides, stream through the label-carrying rows (``dispatch_packed``)
+    and extract each window with ``extract_batch_columnar``.  Returns False
+    when the chunk fits one window, or a window of the batch granularity
     would not fit the stack budget (the caller labels it one-shot)."""
-    from ..extract import apply_device_decisions
+    from ..extract import apply_device_decisions, extract_batch_columnar
     from ..io.batch import padded_matrix
 
     B = batch.B
-    if param.matchstart != -1 or param.matchend != -1:
-        return False
+    matchstart, matchend = param.matchstart, param.matchend
+    sub = matchstart != -1 or matchend != -1
     eng = get_engine(mb, kind)
     rfl = eng.required_finger_len()
-    if rfl > 27:
-        return False
+    decided = not sub and rfl <= 27
     full_lens = batch.lens
-    Lpad = max((int(full_lens.max(initial=1)) + 31) // 32 * 32, 32)
+    Lmax = (matchend - matchstart) if sub else int(full_lens.max(initial=1))
+    Lpad = max((int(Lmax) + 31) // 32 * 32, 32)
     DEPTH = max(int(os.environ.get("TAGDUST_TPU_PIPELINE_DEPTH", "3")), 1)
     BT = eng.default_batch_tile()
     # DEPTH windows in flight share the budget; where a window of BT reads
     # would not fit, the one-shot path sub-batches the chunk instead
-    fit = eng.reads_within(Lpad, eng.STACK_BYTES // DEPTH) // BT * BT
+    fit = eng.reads_within(Lpad, eng.STACK_BYTES // DEPTH, not decided) // BT * BT
     if fit < BT:
         return False
     W = min(fit, 16384)
@@ -307,16 +321,22 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     thr32 = eng.threshold_f32_ceil(confidence_threshold)
     minlen = int(param.minlen)
     on_card = eng.device.type == "cuda"
-    dust_dev = np.empty((B, 2), dtype=np.float32)
+    # device DUST (extracted, raw); a sub-range decode keeps the host's,
+    # whose label-buffer quirks differ
+    dust_dev = None if sub else np.empty((B, 2), dtype=np.float32)
     inflight: deque = deque()  # enqueued on the device
     ready: deque = deque()  # device->host copy enqueued
     consumed = [0]
 
     def _window(s: int, e: int):
-        seqs = padded_matrix(
-            batch.seq_arena, batch.seq_off[s : e + 1], full_lens[s:e], Lpad, 0
-        )
-        lens_w = full_lens[s:e].astype(np.int32)
+        if sub:
+            seqs = _subrange_matrix(batch, s, e, matchstart, matchend, Lpad)
+            lens_w = np.full(e - s, matchend - matchstart, dtype=np.int32)
+        else:
+            seqs = padded_matrix(
+                batch.seq_arena, batch.seq_off[s : e + 1], full_lens[s:e], Lpad, 0
+            )
+            lens_w = full_lens[s:e].astype(np.int32)
         return eng._pad(seqs, lens_w, BT)
 
     def _fetch(rows):
@@ -332,9 +352,23 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
         if ev is not None:
             ev.synchronize()
         consumed[0] += 1
-        res = collect_decided(host.numpy(), e - s, Lpad)
-        dust_dev[s:e] = res["dust"]
-        apply_device_decisions(batch.slice(s, e), res, rfl)
+        win = batch.slice(s, e)
+        if decided:
+            res = collect_decided(host.numpy(), e - s, Lpad)
+            dust_dev[s:e] = res["dust"]
+            apply_device_decisions(win, res, rfl)
+        else:
+            res = eng.collect_packed(host.numpy(), e - s, Lpad)
+            if dust_dev is not None:
+                dust_dev[s:e] = res.dust
+            win.mapq[:] = res.mapq.astype(np.float64)
+            extract_batch_columnar(
+                mb, rs, win, res.labels, param.minlen, confidence_threshold,
+                matchstart, matchend,
+            )
+            if win.fp_big:
+                batch.fp_big.update({s + k: v for k, v in win.fp_big.items()})
+                batch.fingerprint[s:e][list(win.fp_big)] = -2
         STREAM_STATS["windows"] += 1
 
     def _stage():
@@ -349,7 +383,9 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
         for s in range(0, B, W):
             e = min(s + W, B)
             seqs, lens_w = _window(s, e)
-            inflight.append((s, e, eng.dispatch_decided(seqs, lens_w, thr32, minlen)))
+            rows = (eng.dispatch_decided(seqs, lens_w, thr32, minlen) if decided
+                    else eng.dispatch_packed(seqs, lens_w))
+            inflight.append((s, e, rows))
             if len(inflight) >= DEPTH:
                 _stage()
         while inflight:
@@ -363,6 +399,7 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
             raise
         # nothing extracted yet: the caller re-labels the chunk one-shot on
         # the same engine and kernels (a broken kernel raises there)
+        STREAM_STATS["oneshot_after_failure"] += 1
         sys.stderr.write(
             f"[tagdust_tpu_torch] WARNING: streaming labelling failed before "
             f"its first window ({type(exc).__name__}: {exc}); labelling the "
@@ -395,9 +432,8 @@ def run_get_label_batch(mb, rs, batch, param, confidence_threshold,
     # for rejects: captured before the artifact filter rewrites read_type
     was_success = batch.read_type == EXTRACT_SUCCESS
     if contaminants is not None:
-        # host Myers: the device artifact filter is not ported yet
         match_to_reference_columnar(
-            batch, contaminants, param.filter_error, device=False
+            batch, contaminants, param.filter_error, device=kind
         )
     if param.dust:
         dd = batch.dust_device
@@ -411,13 +447,15 @@ def run_get_label_batch(mb, rs, batch, param, confidence_threshold,
 
 def run_rna_dust_batch(batch, param, contaminants=None) -> None:
     """Pure R:N architectures over a columnar ReadBatch: no model to score,
-    only the filters (host Myers, host DUST)."""
+    only the filters (Myers on the run's engine: the ``td_myers`` kernel for
+    ``cuda``, its plain version for ``torch``, the host lanes for ``exact``;
+    host DUST)."""
     from ..filters import dust_batch_columnar, match_to_reference_columnar
 
     batch.read_type[:] = EXTRACT_SUCCESS
     if contaminants is not None:
         match_to_reference_columnar(
-            batch, contaminants, param.filter_error, device=False
+            batch, contaminants, param.filter_error, device=resolve_engine(param)
         )
     if param.dust:
         dust_batch_columnar(batch, param.dust)

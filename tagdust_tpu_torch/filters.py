@@ -13,6 +13,7 @@
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
@@ -137,14 +138,22 @@ def dust_batch_columnar(batch, dust_cut: int) -> None:
         batch.read_type[scores > dust_cut] = EXTRACT_FAIL_LOW_COMPLEXITY
 
 
+# seconds the columnar artifact filter has spent since the last reset:
+# gathering the patterns from the arena, building their masks on the host,
+# and in the Myers lanes (on a device: upload, kernel and fetch)
+REF_TIMINGS = {"calls": 0, "gather_s": 0.0, "masks_s": 0.0, "lanes_s": 0.0}
+
+
 def match_to_reference_columnar(
     batch, contaminant_seqs: List[np.ndarray], error_cut: int,
-    device: bool = False,
+    device=None,
 ) -> None:
-    """Columnar match_to_reference: patterns gathered from the seq arena."""
+    """Columnar match_to_reference: patterns gathered from the seq arena.
+    ``device`` as in ``_reference_hits``."""
     B = batch.B
     if B == 0 or not contaminant_seqs:
         return
+    t0 = time.perf_counter()
     W = 63
     full = batch.lens
     lens = np.minimum(full, W).astype(np.int32)
@@ -163,6 +172,8 @@ def match_to_reference_columnar(
         np.uint8
     )
     rev[~valid] = SPACER
+    REF_TIMINGS["calls"] += 1
+    REF_TIMINGS["gather_s"] += time.perf_counter() - t0
     hit, best_id = _reference_hits(fwd, rev, lens, contaminant_seqs,
                                    error_cut, device)
     mark = hit & (batch.read_type == EXTRACT_SUCCESS)
@@ -171,22 +182,37 @@ def match_to_reference_columnar(
     )
 
 
-def _reference_hits(fwd, rev, lens, contaminant_seqs, error_cut, device):
-    """Shared core: best Myers distance over contaminants x orientations."""
-    # host uint64 lanes on every engine: the device Myers kernel is not
-    # ported yet, so ``device`` selects nothing here
-    kernel = _bpm_batch
+def _reference_hits(fwd, rev, lens, contaminant_seqs, error_cut, device=None):
+    """Shared core: best Myers distance over contaminants x orientations.
+    ``device`` ``"cuda"`` runs the lanes through the ``td_myers`` kernel on
+    the card and ``"torch"`` through its plain version on CPU tensors
+    (``engine/myers.py``); anything else runs the host uint64 lanes.  A
+    kernel that fails to build or launch raises: nothing downgrades to the
+    host lanes."""
+    t0 = time.perf_counter()
     B = fwd.shape[0]
     B4f = _pattern_masks(fwd, lens)
     B4r = _pattern_masks(rev, lens)
+    t1 = time.perf_counter()
+    REF_TIMINGS["masks_s"] += t1 - t0
+    if device in ("cuda", "torch"):
+        from .engine.myers import reference_hits_device
+
+        out = reference_hits_device(
+            B4f, B4r, lens, contaminant_seqs, error_cut,
+            "cuda" if device == "cuda" else "cpu",
+        )
+        REF_TIMINGS["lanes_s"] += time.perf_counter() - t1
+        return out
     best = np.full(B, 100000, dtype=np.int64)
     best_id = np.zeros(B, dtype=np.int64)
     for j, ref in enumerate(contaminant_seqs):
         for B4 in (B4f, B4r):
-            d = kernel(ref, B4, lens)
+            d = _bpm_batch(ref, B4, lens)
             better = d < best
             best = np.where(better, d, best)
             best_id = np.where(better, j + 1, best_id)
+    REF_TIMINGS["lanes_s"] += time.perf_counter() - t1
     return (best <= error_cut) & (lens > 0), best_id
 
 
@@ -307,15 +333,15 @@ def match_to_reference(
     reads: List[Read],
     contaminant_seqs: List[np.ndarray],
     error_cut: int,
-    device: bool = False,
+    device=None,
 ) -> None:
     """barcode_hmm.c:2478-2583 semantics: for each read take, over all
     contaminants and both orientations, the minimum distance computed by
     the (pattern = read) kernel; mark EXTRACT_SUCCESS reads whose best
     distance <= error_cut.  Runs the Myers recurrence batch-wide (one uint64
-    lane per read) instead of per read; ``device=True`` runs the same
-    recurrence on the accelerator (uint32-pair lanes,
-    engine/myers_tpu.py)."""
+    lane per read) instead of per read; ``device`` ``"cuda"`` or ``"torch"``
+    runs the same recurrence in int64 lanes on that torch device
+    (engine/myers.py)."""
     B = len(reads)
     if B == 0 or not contaminant_seqs:
         return

@@ -6,10 +6,13 @@ and the exact engine.  On the CPU, for the 8 x 6nt library, the flagship,
 the 96 x 8nt plate and the plate + a 140nt spacer, each package builds its
 model from its own modules, and the two must agree exactly: the compiled
 lattice, the device tables built from it, the calibrated threshold on a
-seeded read set, and the exact engine's scores.
+seeded read set, and the exact engine's scores.  The auxiliary tools are
+copies line for line, and the filters' host lanes (pattern masks, Myers,
+DUST) give the same arrays on seeded reads.
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -136,3 +139,46 @@ def test_calibrated_thresholds_are_equal(name):
             param, rs, _ssi(pkg),
             lambda mb, seqs, r=runner: r.run_get_prob(mb, seqs, engine_kind="exact"))
     assert out["jax"] == out["port"]
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("tool", ["simreads", "evalres", "merge_tool", "rename_qiime"])
+def test_tool_copies_follow_the_jax_tools(tool):
+    """Each tool of the port is the JAX package's source but for the
+    package's name."""
+    src = {}
+    for pkg in ("tagdust_tpu", "tagdust_tpu_torch"):
+        with open(os.path.join(_REPO, pkg, "cli", f"{tool}.py")) as fh:
+            src[pkg] = fh.read()
+    assert src["tagdust_tpu_torch"].replace("tagdust_tpu_torch", "tagdust_tpu") == (
+        src["tagdust_tpu"])
+
+
+def test_filter_host_lanes_are_equal():
+    """Pattern masks, the uint64 Myers lanes, the scalar kernels and DUST of
+    each package's ``filters`` on the same seeded reads."""
+    import tagdust_tpu.filters as jf
+    import tagdust_tpu_torch.filters as pf
+
+    rng = np.random.default_rng(17)
+    B, W = 64, 63
+    lens = rng.integers(1, W + 1, B).astype(np.int32)
+    pats = rng.integers(0, 4, (B, W)).astype(np.uint8)
+    pats[rng.random((B, W)) < 0.1] = 65
+    text = rng.integers(0, 4, 200).astype(np.uint8)
+    a, b = jf._pattern_masks(pats, lens), pf._pattern_masks(pats, lens)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(jf._bpm_batch(text, a, lens),
+                                  pf._bpm_batch(text, b, lens))
+    for i in range(8):
+        n, m = text.shape[0], int(lens[i])
+        for fn in ("_bmp_single", "bpm_check_error", "bpm_check_error_global"):
+            assert getattr(jf, fn)(text, pats[i], n, m) == (
+                getattr(pf, fn)(text, pats[i], n, m)), fn
+    arr = rng.integers(0, 4, (B, 64)).astype(np.uint8)
+    arr[:8, 5:] = 0  # low complexity
+    full = rng.integers(2, 90, B).astype(np.int32)
+    np.testing.assert_array_equal(jf._dust_scores_core(arr, full),
+                                  pf._dust_scores_core(arr, full))

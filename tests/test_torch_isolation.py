@@ -4,8 +4,11 @@ JAX package ``tagdust_tpu``, and its default engine needs the card.
 * an AST scan of every module of ``tagdust_tpu_torch`` and of the two
   scripts that drive it on the card;
 * a subprocess that runs a small ``-engine torch`` demultiplex through the
-  CLI, ``-arch`` detection included, and then finds neither ``jax`` nor
-  ``tagdust_tpu`` in ``sys.modules``;
+  CLI, ``-arch`` detection, the ``-ref`` artifact filter (the plain Myers
+  lanes) and a ``-start/-end`` decode (the label-carrying rows) included,
+  and then finds neither ``jax`` nor ``tagdust_tpu`` in ``sys.modules``;
+* a subprocess that imports the auxiliary tools and the Myers module and
+  finds the same;
 * a subprocess in which ``torch.cuda.is_available`` is False: the default
   ``-engine auto`` raises, as ``-engine cuda`` does (decided in the
   subprocess, so every test worker collects the same tests).
@@ -71,14 +74,39 @@ def test_a_demultiplex_loads_no_module_of_jax(tmp_path):
     write_fastq(fq, 120, seed=3)
     arch = tmp_path / "arch.txt"
     arch.write_text(ARCH_FILE)
-    for args in (ARCHS["barcode"], ["-arch", str(arch)]):
-        out = str(tmp_path / f"o{len(args)}")
+    contam = tmp_path / "contam.fa"
+    contam.write_text(">adapter1\nACGTACGTACGTACGTACGT\n")
+    for n, args in enumerate((
+            ARCHS["barcode"], ["-arch", str(arch)],
+            [*ARCHS["barcode"], "-ref", str(contam)],
+            [*ARCHS["barcode"], "-start", "1", "-end", "30"])):
+        out = str(tmp_path / f"o{n}")
         res = subprocess.run(
             [sys.executable, "-c", _RUN, *args, fq, "-Q", "10", "-o", out,
              "-engine", "torch"],
             check=True, capture_output=True, text=True, cwd=_REPO, env=_env())
         assert res.stdout.strip().splitlines()[-1] == "[]"
         assert os.path.getsize(out + "_un.fq") > 0
+
+
+_TOOLS = """
+import json, sys
+import tagdust_tpu_torch.cli.simreads, tagdust_tpu_torch.cli.evalres
+import tagdust_tpu_torch.cli.merge_tool, tagdust_tpu_torch.cli.rename_qiime
+import tagdust_tpu_torch.engine.myers
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "tagdust_tpu"))))
+"""
+
+
+def test_the_tools_and_the_myers_module_load_no_module_of_jax():
+    names = {os.path.relpath(f, _REPO) for f in FILES}
+    for tool in ("simreads", "evalres", "merge_tool", "rename_qiime"):
+        assert f"tagdust_tpu_torch/cli/{tool}.py" in names
+    assert "tagdust_tpu_torch/engine/myers.py" in names
+    res = subprocess.run([sys.executable, "-c", _TOOLS], check=True,
+                         capture_output=True, text=True, cwd=_REPO, env=_env())
+    assert res.stdout.strip().splitlines()[-1] == "[]"
 
 
 _NO_CARD = """
