@@ -18,8 +18,10 @@ Phases, each fatal on failure (no phase catches its own error):
    lattices of the main paths; K1-K4 grouped (the mode forced) on the
    flagship and the plate; K1/K4 dense on ``R:N`` alone (K = 0, an
    ``-arch`` candidate); K4's logP_b must equal K1's bit for bit;
-   where K1/K4 or K2 stage their step tables in shared memory, K1 or K2 is
-   timed with them left in L2 too; K3 at long reads (B=1024, Lp=4224, the
+   where K1/K4 or K2 stage step tables in shared memory, K1 or K2 is timed
+   at each lower staging level too, down to every step table left in L2
+   (at the same reads per block, and at those that level would allow),
+   outputs equal at each; K3 at long reads (B=1024, Lp=4224, the
    flagship lattice) against the plain traceback, exact;
    ``td_myers`` (the artifact filter's edit distance) over 1,048,576 seeded
    patterns of 1-63 symbols with 15% spacers (``m = 1``, ``m = 63`` and an
@@ -27,11 +29,18 @@ Phases, each fatal on failure (no phase catches its own error):
    texts of 20, 157, 1,869 and 5,070nt (the lengths of an adapter and of
    human 5.8S, 18S and 28S rRNA): equal to the plain lanes on the card on
    every lane and to the host uint64 lanes on the first 20,000;
-4. gate: dense against grouped K1, K2 and K4 at 8, 20, 48 and 96
+4. digest: a sha256 of every output of dense K1 (``bstack``, ``blstack``,
+   ``logpb``), K4 (``logpb``) and K2 (``path``, ``dpfin``, ``f_log``,
+   ``tp``) on the kernels phase's seeded inputs, per lattice (8 x 6nt,
+   flagship, plate, plate + spacer; K1 and K4 on ``R:N``), one ``digest``
+   line each: run ``--only digest`` on two checkouts on one card and
+   compare the lines to show that two versions of the kernels give the
+   same bits;
+5. gate: dense against grouped K1, K2 and K4 at 8, 20, 48 and 96
    barcodes; the engine runs every kernel dense unless grouped is forced,
    so dense must be the faster mode of each; the dense kernels alone on
    the plate + spacer;
-5. main paths, each through the port's CLI entry point with the launch
+6. main paths, each through the port's CLI entry point with the launch
    counts set to 0 just before it and read just after; every kernel of the
    path must have launched, no plain version may run on CUDA tensors,
    every read must be written, barcode precision >= 0.99:
@@ -56,7 +65,7 @@ Phases, each fatal on failure (no phase catches its own error):
    each prints its step mode and the launches of each kernel; a path that
    streams in fewer than 3 windows, or that re-labelled a chunk one-shot
    after a failed window, fails;
-6. cross-checks against ``-engine exact`` on the first 20,000 reads, at
+7. cross-checks against ``-engine exact`` on the first 20,000 reads, at
    ``-Q 20`` (a threshold of 0.0: with ``-Q`` the reference does not
    calibrate): the flagship, the 8-plex, and the ``-arch`` run (the same
    winner and confidence); per-read outcomes must agree on >= 99.9%, and
@@ -64,7 +73,7 @@ Phases, each fatal on failure (no phase catches its own error):
    and the 8-plex also run ``-engine torch`` (the plain versions, on the
    CPU), and at most 0.01% of the reads may decide apart from the card on
    the label path;
-7. long reads: 200 reads of the plate library, 5,410-5,470nt (padded to
+8. long reads: 200 reads of the plate library, 5,410-5,470nt (padded to
    5,472), through the CLI on ``-engine cuda`` and ``-engine exact`` at
    ``-Q 20``: every read written, K1-K3 launched and no plain version on
    CUDA tensors, no launch's buffers over ``CudaEngine.STACK_BYTES``; it
@@ -124,7 +133,7 @@ HBM_RATE = 3.35e12
 F32_RATE = 67e12
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
-PHASES = ("kernels", "myers", "gate", "flagship", "8-plex", "arch", "ref", "sub",
+PHASES = ("kernels", "myers", "digest", "gate", "flagship", "8-plex", "arch", "ref", "sub",
           "cross", "long")
 
 
@@ -226,7 +235,8 @@ def phase_kernels(eng, grouped: bool, seed: int, full: bool = True,
     gt = sc.grouped_tables()
     if device == "cuda":
         print(f"[S={sc.S} {'grouped' if grouped else 'dense'}] reads per block, "
-              "staged (0 none, 1 label tables, 2 and step tables), blocks per SM: "
+              "staged (0 none, 1 label tables, 2 and heavy outputs, 3 and light slices), "
+              "blocks per SM: "
               f"K1 {sc.reads_per_block('bwd')}, {sc.staged('bwd')}, "
               f"{sc.blocks_per_sm('bwd')}; K4 {sc.blocks_per_sm('bwd', spill=False)}; "
               f"K2 {sc.reads_per_block('fwd')}, {sc.staged('fwd')}, "
@@ -388,20 +398,34 @@ def phase_k3_long(eng, seed: int, B: int = 1024, Lp: int = 4224) -> None:
 
 
 def staging(sc, kernel: str, fn, same, tag: str) -> None:
-    """Where ``kernel`` ("bwd" or "fwd") stages its step tables in shared
-    memory, time ``fn`` with them left in L2 too (the staging level forced);
-    ``same(fn())`` must hold at both levels."""
-    if sc.staged(kernel) != 2:
+    """Where ``kernel`` ("bwd" or "fwd") stages step tables in shared memory
+    (level 2: the heavy outputs, 3: and the light slices), time ``fn`` at
+    each lower level down to no step table staged (level 0 for K1, 1 for
+    K2, whose label tables stay staged) at the reads per block it runs,
+    and with no step table staged at the reads per block that level alone
+    would allow (what td_reads_per_block weighs staging against);
+    ``same(fn())`` must hold in each run."""
+    level, rt = sc.staged(kernel), sc.reads_per_block(kernel)
+    if level < 2:
         return
-    bare = int(kernel == "fwd")  # K2 keeps its label tables staged
-    ms = {}
-    for level in (bare, 2):
-        sc._stage[kernel] = level
-        ms[level] = timed(fn)
-        if not same(fn()):
-            fail(f"{kernel} differs at staging level {level}")
-    print(f"[{tag}] {'K2' if bare else 'K1'} step tables in shared memory "
-          f"{ms[2]:.3f} ms, in L2 {ms[bare]:.3f} ms", flush=True)
+    base = int(kernel == "fwd")
+    runs = [(lv, rt) for lv in range(level, 1, -1)] + [(base, rt)]
+    if sc._rt_base[kernel] != rt:
+        runs.append((base, sc._rt_base[kernel]))
+    what = {3: "heavy + light in shared memory", 2: "heavy in shared memory, light in L2",
+            base: "both in L2"}
+    parts = []
+    try:
+        for lv, r in runs:
+            sc._stage[kernel], sc._rt[kernel] = lv, r
+            ms = timed(fn)
+            if not same(fn()):
+                fail(f"{kernel} differs at staging level {lv}, {r} reads per block")
+            parts.append(f"{what[lv]} ({r} reads a block) {ms:.3f} ms")
+    finally:
+        sc._stage[kernel], sc._rt[kernel] = level, rt
+    print(f"[{tag}] {'K2' if kernel == 'fwd' else 'K1'} step tables: " + "; ".join(parts),
+          flush=True)
 
 
 def bound(eng, seqs, lens) -> dict:
@@ -457,6 +481,45 @@ def report(tag: str, res: dict, B: int, Lp: int) -> None:
         print(f"[{tag}] {key}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) (B={B}, Lp={Lp})",
               flush=True)
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes (contiguous, on the host)."""
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy()).hexdigest()
+
+
+# lattices of the digest phase: K1, K4 and K2 on the first four, K1 and K4
+# on R:N (the kernels phase's dense runs)
+DIGEST_RUNS = (("8", True), ("flagship", True), ("plate", True), ("spacer", True),
+               ("R:N", False))
+
+
+def phase_digest(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
+    """One ``digest <lattice> <kernel> <output> <sha256>`` line for every
+    output of dense K1, K4 and K2 on the kernels phase's seeded inputs."""
+    import torch
+
+    from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
+
+    rng = np.random.default_rng(seed)
+    seqs = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
+    lens = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).cuda()
+    for name, full in DIGEST_RUNS:
+        sc = FusedScorer(models[name].tables).cuda()
+        out = {}
+        bst, blst, logpb = sc.backward(seqs, lens)
+        out["K1"] = {"bstack": bst, "blstack": blst, "logpb": logpb}
+        out["K4"] = {"logpb": sc.score(seqs, lens)}
+        if full:
+            path, dpfin, flog, tp = sc.forward_decode(seqs, lens, bst, blst, logpb)
+            out["K2"] = {"path": path, "dpfin": dpfin, "f_log": flog, "tp": tp}
+        for kern, outs in out.items():
+            for k, t in outs.items():
+                print(f"digest {name} {kern} {k} {digest(t)}", flush=True)
+        del sc, bst, blst, logpb, out
+        torch.cuda.empty_cache()
 
 
 def phase_gate(models: dict, seed: int, B: int = 16384, Lp: int = 64) -> None:
@@ -1159,7 +1222,7 @@ def main() -> int:
 
     sets = barcode_sets()
     timing = {}  # (counter, model) -> measurements
-    if on("kernels") or on("gate"):
+    if on("kernels") or on("gate") or on("digest"):
         models = {name: CudaEngine(library_model(b), "cuda") for name, b in sets.items()}
         kmodels = dict(models, **{
             "R:N": CudaEngine(library_model([]), "cuda"),
@@ -1172,6 +1235,8 @@ def main() -> int:
     if on("myers"):
         timing["myers", "myers"] = phase_myers(args.seed)
     print(f"kernel times above on: {card}", flush=True)
+    if on("digest"):
+        phase_digest(kmodels, args.seed)
     if on("gate"):
         phase_gate(dict(models, spacer=kmodels["spacer"]), args.seed)
         print(f"gate times above on: {card}", flush=True)

@@ -103,7 +103,7 @@ def lib():
         return _lib
     L = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    L.td_reads_per_block.argtypes = [I] * 8 + [P]
+    L.td_reads_per_block.argtypes = [I] * 7 + [P, P]
     L.td_bwd.argtypes = [P] * 14 + [I] * 9 + [P]
     L.td_bwd_score.argtypes = [P] * 12 + [I] * 9 + [P]
     L.td_fwd.argtypes = [P] * 21 + [I] * 14 + [P]

@@ -12,9 +12,12 @@ mode to the other.
 Each kernel reads its tables from one blob (``tables.staged_tables``):
 K2's label-DP tables (``tables.label_tables``, with ``lab_ptr``,
 ``lab_idx``, ``ent_state``), which it stages in shared memory, and in the
-dense mode the non-zero tables of its step matrix (``tables.sparse_tables``
-of ``Ab`` for K1 and K4, of ``Af`` for K2), staged where they fit beside
-the carries.  The plain versions read the dense matrices.
+dense mode the tables of its step matrix (``tables.sliced_tables`` of
+``Ab`` for K1 and K4, of ``Af`` for K2: the heavy outputs, staged where
+they fit, and the light slices, staged where they fit too).  The dense
+kernels keep their carries' columns swizzled (``tables.swizzle``), so K2's
+``lab_idx`` is swizzled in its dense blob.  The plain versions read the
+dense matrices.
 
 ``LAUNCHES`` counts kernel launches per kernel and mode (and those of
 ``td_myers``, ``engine/myers.py``), so a run can show that its main path
@@ -28,7 +31,7 @@ import torch
 from torch import nn
 
 from . import scan
-from .tables import label_tables, sparse_tables, staged_tables
+from .tables import label_tables, sliced_tables, staged_tables, swizzle
 
 LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0, "bwd_grouped": 0, "fwd_grouped": 0,
             "score": 0, "score_grouped": 0, "myers": 0}
@@ -89,14 +92,18 @@ class FusedScorer(nn.Module):
             self.NU = int(grouped["urows"].shape[0])
         label = dict(label_tables(tables["tmat"]),
                      **{k: tables[k] for k in ("lab_ptr", "lab_idx", "ent_state")})
+        if not self.grouped:
+            label["lab_idx"] = swizzle(label["lab_idx"])
         # word offsets of each blob's tables, passed to the kernels by address
         self.tabs = {}
         for k, step_matrix, lab in (("bwd", "Ab", None), ("fwd", "Af", label)):
-            step = None if self.grouped else sparse_tables(tables[step_matrix])
+            step = None if self.grouped else sliced_tables(tables[step_matrix], self.S)
             blob, self.tabs[k] = staged_tables(lab, step)
             _buffer(self, "blob_" + k, blob)
         self._rt = {}
+        self._rt_base = {}
         self._stage = {}
+        self._threads = {}
 
     def grouped_tables(self) -> dict:
         """The grouped tables as tensors (the plain versions' argument)."""
@@ -129,19 +136,20 @@ class FusedScorer(nn.Module):
     def reads_per_block(self, kernel: str) -> int:
         """Reads per block of ``kernel`` ("bwd" for K1 and K4, "fwd"); also
         records which of its tables fit the shared memory the carries leave
-        (``staged``)."""
+        (``staged``), its threads per block, and its reads per block with no
+        step table staged (``_rt_base``)."""
         if kernel not in self._rt:
             import ctypes
 
             from .build import lib
 
             fwd = kernel == "fwd"
-            Yr = self.Sr if self.grouped else (self.S + self.K + 3) // 4 * 4
-            tab = self.tabs[kernel]
-            out = (ctypes.c_longlong * 3)()  # stage, one read's bytes, limit
+            # staging level, one read's bytes, the card's limit, threads,
+            # reads per block with no step table staged
+            out = (ctypes.c_longlong * 5)()
             rt = lib().td_reads_per_block(
-                int(fwd), self.Sr, Yr, max(self.K, 1), self.H,
-                self.nm if self.grouped else 0, int(tab[-2]), int(tab[-1]),
+                int(fwd), int(self.grouped), self.S, self.Sr, self.K, self.H,
+                self.nm if self.grouped else 0, self.tabs[kernel].ctypes.data,
                 ctypes.addressof(out))
             if rt <= 0:
                 name = "K2 (td_fwd)" if fwd else "K1 and K4 (td_bwd)"
@@ -153,12 +161,14 @@ class FusedScorer(nn.Module):
                 )
             self._rt[kernel] = rt
             self._stage[kernel] = int(out[0])
+            self._threads[kernel] = int(out[3])
+            self._rt_base[kernel] = int(out[4])
         return self._rt[kernel]
 
     def staged(self, kernel: str) -> int:
         """What ``kernel`` stages in shared memory: 0 nothing, 1 K2's
-        label-DP tables, 2 the non-zero step tables (after K2's label-DP
-        tables)."""
+        label-DP tables, 2 and the dense step's heavy outputs, 3 and its
+        light slices."""
         self.reads_per_block(kernel)
         return self._stage.get(kernel, 0)
 

@@ -25,14 +25,15 @@ columns through ``(v[:, urows] @ Uent[urows]) * Eent[base]``.
 All products run in full float32: TF32 is switched off in each call.
 
 Two more plain versions mirror what the kernels' dense mode does instead of
-the dense products: ``sparse_step``, the step over the non-zero tables of
-``tables.sparse_tables`` as one chain per (read, output) in ascending input
+the dense products: ``sliced_step``, the step over the tables of
+``tables.sliced_tables`` as one chain per (read, output) in ascending input
 order, and ``sparse_label_dp``, K2's label DP over the non-zero entries of
 each column of ``tmat`` (``tables.label_tables``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # number of calls of a plain version with CUDA tensors: the device main
@@ -74,34 +75,46 @@ def _dense_step(M):
     return lambda x, oh: _expand(x, oh) @ M
 
 
-def sparse_step(x, oh, nz_ptr, nz_idx, nz_val):
-    """The dense step ``x -> x @ M[base]`` from the non-zero tables of ``M``
-    (``tables.sparse_tables``; rows with code >= 5 give 0): for each (read,
-    output), one chain over the output's inputs in ascending order, as the
-    kernels run it, with a multiply and an add where the kernels fuse them.
-    Shorter chains are padded with zero terms, x * 0 + acc == acc for
+def sliced_step(x, oh, sl: dict, nout: int):
+    """The dense step ``x -> x @ M[base]`` from the step tables of ``M``
+    (``tables.sliced_tables``; rows with code >= 5 give 0), as the dense
+    kernels run it on swizzled carries: per (read, output) one chain over
+    the output's listed inputs in ascending order, a light slice's zero
+    padding included, with a multiply and an add where the kernels fuse
+    them.  Every term beyond the non-zero ones is x * 0 + acc == acc for
     finite x >= 0, so the result is the chain over all inputs, zeros
     included."""
+    from .tables import swizzle
+
     _enter(x)
-    B = x.shape[0]
-    nout = nz_ptr.shape[1] - 1
-    ptr = nz_ptr.long()
-    out = torch.zeros((B, nout), dtype=torch.float32, device=x.device)
-    last = max(nz_idx.numel() - 1, 0)
+    B, S = x.shape
+    dev = x.device
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    xs = torch.zeros((B, -(-S // 32) * 32), dtype=torch.float32, device=dev)
+    xs[:, t(swizzle(np.arange(S)))] = x
+    ys = torch.zeros((B, -(-nout // 32) * 32), dtype=torch.float32, device=dev)
+    hp, sp = sl["hv_ptr"], sl["sl_ptr"]
     for c in range(5):
         rows = torch.nonzero(oh[:, c] > 0)[:, 0]
-        counts = ptr[c, 1:] - ptr[c, :-1]
-        if rows.numel() == 0 or int(counts.max()) == 0:
+        if rows.numel() == 0:
             continue
-        xr = x[rows]
-        acc = torch.zeros((rows.numel(), nout), dtype=torch.float32, device=x.device)
-        for k in range(int(counts.max())):
-            has = k < counts
-            e = torch.clamp(ptr[c, :-1] + k, max=last)
-            val = torch.where(has, nz_val[e], torch.zeros_like(nz_val[e]))
-            acc = acc + xr[:, nz_idx[e].long()] * val
-        out[rows] = acc
-    return out
+        xr = xs[rows]
+        for h, o in enumerate(sl["hv_out"]):
+            e = sl["hv_ent"][hp[h] : hp[h + 1], c]  # [n, 2]
+            acc = torch.zeros(rows.numel(), dtype=torch.float32, device=dev)
+            for i, v in zip(e[:, 0], e[:, 1].view(np.float32)):
+                acc = acc + xr[:, int(i)] * float(v)
+            ys[rows, int(o)] = acc
+        for i in range(sl["sl_out"].shape[0]):
+            idx = sl["sl_idx"][sp[i] : sp[i + 1]]  # [W, 32]
+            val = sl["sl_val"][sp[i] : sp[i + 1], c]  # [W, 32]
+            acc = torch.zeros((rows.numel(), 32), dtype=torch.float32, device=dev)
+            for w in range(idx.shape[0]):
+                acc = acc + xr[:, t(idx[w].astype(np.int64))] * t(val[w])
+            outs = sl["sl_out"][i]
+            keep = np.nonzero(outs >= 0)[0]
+            ys[rows[:, None], t(outs[keep].astype(np.int64))] = acc[:, t(keep)]
+    return ys[:, t(swizzle(np.arange(nout)))]
 
 
 def label_dp(dp, tmat):

@@ -20,11 +20,13 @@ So both packages provably start from identical parameters.  Kernel layouts:
 * ``Sr`` is S rounded up to 4; the pad rows are zero so the kernels can read
   the carry four states at a time.
 
-The dense step of every kernel walks only the non-zero entries of its step
-matrix (``Ab`` for K1 and K4, ``Af`` for K2), listed per base and output
-state by ``sparse_tables``; K2's label DP walks the non-zero entries of each
-column of ``tmat`` (``label_tables``).  ``staged_tables`` packs the tables a
-kernel copies into shared memory into one blob.  The grouped (block-banded)
+The dense step of every kernel walks, per output, only the inputs with a
+non-zero entry in its step matrix (``Ab`` for K1 and K4, ``Af`` for K2)
+under some base, as ``sliced_tables`` lays them out (heavy outputs apart,
+light outputs in slices of a warp's width, columns swizzled); K2's label DP
+walks the non-zero entries of each column of ``tmat`` (``label_tables``).
+``staged_tables`` packs a kernel's tables into one blob, of which the
+kernel copies a prefix into shared memory.  The grouped (block-banded)
 step mode has its own tables, built from
 ``lattice.grouped_step_decomposition`` by ``grouped_tables``.
 """
@@ -39,15 +41,17 @@ from .lattice import Lattice, compile_lattice, grouped_step_decomposition
 # the JAX kernel packs one silent-exit column per segment into one 128-lane
 # tile (pallas_kernel.py:128-148); the port keeps the same bound
 MAX_SEGMENTS = 128
-# an output of the sparse step with more inputs than this under some base
-# goes to a warp of its own (sparse_tables)
+# an output of the dense step with more inputs than this goes to a warp of
+# its own (sliced_tables)
 HEAVY_INPUTS = 32
-# the tables a kernel stages in shared memory, in the order of the word
-# offsets of ``staged_tables`` (struct Staged of csrc/fused_dp.cu): K2's
-# label-DP part, then the sparse step's part
+# the tables a kernel reads from its blob, in the order of the word offsets
+# of ``staged_tables`` (struct Staged of csrc/fused_dp.cu): K2's label-DP
+# part, then the dense step's heavy part and light part; a kernel stages
+# a prefix of the three parts in shared memory
 LABEL_TABLES = ("tm_ptr", "tm_src", "tm_val", "tm_diag", "lab_ptr", "lab_idx",
                 "ent_state")
-STEP_TABLES = ("nz_ptr", "nz_idx", "nz_val", "nz_out")
+HEAVY_TABLES = ("hv_ptr", "hv_out", "hv_ent")
+LIGHT_TABLES = ("sl_ptr", "sl_out", "sl_idx", "sl_val")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,46 +143,95 @@ def tables_from_numpy(dev: dict) -> dict:
     }
 
 
-def sparse_tables(Ab: np.ndarray) -> dict:
-    """The non-zero entries of a dense step matrix [5, Sr, S]: input, then
-    output (``Ab[c, t, s] = A[c][s, t]`` of K1 and K4, with S outputs;
-    ``Af`` of K2, with S + K outputs, the states then the barcode entry
-    columns), per base and output:
+def swizzle(s):
+    """The place of column ``s`` in a dense kernel's carry row: ``s`` with
+    its low five bits xor-ed by the next five, a permutation inside each
+    block of 32 columns.  The light outputs' inputs are states a barcode's
+    length apart (16 at 8nt), which would fall in a few of shared
+    memory's 32 banks; swizzled, one load of a warp's 32 inputs meets
+    about 1.2-1.7 of them (the step's x loads)."""
+    return s ^ ((s >> 5) & 31)
 
-    * ``nz_ptr`` [5, S+1] int32: the inputs of output ``s`` under base ``c``
-      are entries ``nz_ptr[c, s]`` to ``nz_ptr[c, s+1]`` of the two arrays
-      below, which all bases share;
-    * ``nz_idx`` [nnz] int32: the input states, ascending within an output;
-    * ``nz_val`` [nnz] f32: ``Ab[c, t, s]``, copied;
-    * ``nz_out`` [S] int32: the outputs, ascending, those with more than
-      ``HEAVY_INPUTS`` inputs under some base (K1: the silent states that
-      fan out to every barcode; K2: the states that collect from every
-      barcode) moved to the end;
-    * ``nz_heavy``: the number of those heavy outputs.
 
-    The kernel walks an output's inputs in ascending order, the order of
-    the dense product's fmaf chain, and skips only exact zeros, so its sums
-    equal the dense ones bit for bit.  A thread takes a light output for 8
-    reads at a time; a warp takes a heavy one, a lane per read."""
-    Ab = np.asarray(Ab, dtype=np.float32)
-    S = Ab.shape[2]
-    # C order of [c, s, t]: by base, then output, then ascending input
-    c, s, t = np.nonzero(np.swapaxes(Ab, 1, 2))
-    if c.size >= 2**31:
-        raise ValueError(f"{c.size} non-zero step entries overflow int32")
-    counts = np.bincount(c * S + s, minlength=5 * S).reshape(5, S)
-    ptr = np.zeros((5, S + 1), dtype=np.int64)
-    ptr[:, 1:] = np.cumsum(counts, axis=1)
-    ptr += np.concatenate([[0], np.cumsum(counts.sum(axis=1))[:-1]])[:, None]
-    heavy = counts.max(axis=0) > HEAVY_INPUTS
-    return {
-        "nz_ptr": ptr.astype(np.int32),
-        "nz_idx": t.astype(np.int32),
-        "nz_val": np.ascontiguousarray(Ab[c, t, s]),
-        "nz_out": np.concatenate([np.nonzero(~heavy)[0],
-                                  np.nonzero(heavy)[0]]).astype(np.int32),
-        "nz_heavy": int(heavy.sum()),
-    }
+def row_stride(n: int, lanes: int = 32) -> int:
+    """Floats per carry row of ``n`` swizzled columns in the dense kernels
+    whose per-read phases give each read ``lanes`` lanes: whole blocks of
+    32, plus ``lanes + 1`` modulo 32, which is odd, so that the rows of a
+    warp's 32 reads start in distinct banks (the heavy outputs' loads) and
+    the rows of its lane groups ``lanes + 1`` banks apart."""
+    return _round_up(n, 32) + (lanes + 1) % 32
+
+
+def sliced_tables(M: np.ndarray, S: int) -> dict:
+    """The dense step ``x -> x @ M[c]`` of a kernel (``Ab`` of K1 and K4,
+    ``Af`` of K2; [5, Sr, nout]) as the dense kernels walk it.  Each output
+    lists its inputs once for all bases, ascending: the union over the
+    bases of its non-zero entries (one list on the barcode lattices, where
+    the bases share the pattern), a base without an entry carrying 0.  A
+    chain over that list is the dense chain: every term it adds beyond
+    the non-zero ones is ``fmaf(x, 0, acc) == acc`` for the finite carries
+    >= 0.
+
+    * the heavy outputs, more than ``HEAVY_INPUTS`` inputs, longest first:
+      ``hv_ptr`` [nh+1] int32, their entry rows; ``hv_out`` [nh] int32,
+      the swizzled output column; ``hv_ent`` [rows, 5, 2] int32, per input
+      and base the swizzled input and the value's bits (a warp walks one
+      output, a lane per read, each lane its own base);
+    * the light outputs, ascending by their count of inputs and cut into
+      slices of 32 (a warp's lanes): ``sl_ptr`` [nsl+1] int32, the entry
+      rows of each slice (its width is the most inputs of its outputs);
+      ``sl_out`` [nsl, 32] int32, the swizzled output column of each lane
+      (-1 past the last output); ``sl_idx`` [rows, 32] uint16, per row and
+      lane the swizzled input (one for all bases), and ``sl_val`` [rows, 5,
+      32] f32 its value under each base, padded past an output's inputs
+      with input 0 and value 0.  At 96 x 8nt the light tables stream from
+      L2 every position, so they are kept small: 2 + 4 bytes per entry and
+      base present, against 8 for an (input, value) pair per base.
+
+    Swizzled columns: ``swizzle``; the carries' rows are ``row_stride``
+    floats apart."""
+    M = np.asarray(M, dtype=np.float32)
+    nout = M.shape[2]
+    nz = (M[:, :S, :] != 0).any(axis=0)  # [S, nout]
+    fan = nz.sum(axis=0)
+    lists = [np.nonzero(nz[:, o])[0] for o in range(nout)]
+    heavy = np.nonzero(fan > HEAVY_INPUTS)[0]
+    heavy = heavy[np.argsort(-fan[heavy], kind="stable")]
+    light = np.nonzero(fan <= HEAVY_INPUTS)[0]
+    light = light[np.argsort(fan[light], kind="stable")]
+    vals = np.ascontiguousarray(M.view(np.int32))
+
+    def entries(o, width):
+        """[width, 5, 2]: (swizzled input, value bits) of output o."""
+        t = np.zeros(width, dtype=np.int64)
+        t[: fan[o]] = lists[o]
+        e = np.zeros((width, 5, 2), dtype=np.int32)
+        e[:, :, 0] = swizzle(t)[:, None]
+        e[: fan[o], :, 1] = vals[:, lists[o], o].T
+        return e
+
+    hv_ptr = np.concatenate([[0], np.cumsum(fan[heavy])]).astype(np.int32)
+    hv_ent = (np.concatenate([entries(o, fan[o]) for o in heavy])
+              if heavy.size else np.zeros((0, 5, 2), np.int32))
+    nsl = -(-light.size // 32)
+    widths = [int(fan[light[32 * i : 32 * i + 32]].max()) for i in range(nsl)]
+    sl_ptr = np.concatenate([[0], np.cumsum(widths)]).astype(np.int32)
+    sl_out = np.full((nsl, 32), -1, dtype=np.int32)
+    sl_idx = np.zeros((int(sl_ptr[-1]), 32), dtype=np.uint16)
+    sl_val = np.zeros((int(sl_ptr[-1]), 5, 32), dtype=np.float32)
+    if -(-max(S, nout) // 32) * 32 > 1 << 16:
+        raise ValueError(f"{nout} columns overflow the step tables' uint16 inputs")
+    for i in range(nsl):
+        outs = light[32 * i : 32 * i + 32]
+        sl_out[i, : outs.size] = swizzle(outs)
+        rows = slice(sl_ptr[i], sl_ptr[i + 1])
+        for lane, o in enumerate(outs):
+            e = entries(o, widths[i])
+            sl_idx[rows, lane] = e[:, 0, 0]
+            sl_val[rows, :, lane] = e[:, :, 1].view(np.float32)
+    return {"hv_ptr": hv_ptr, "hv_out": swizzle(heavy).astype(np.int32),
+            "hv_ent": hv_ent, "sl_ptr": sl_ptr, "sl_out": sl_out, "sl_idx": sl_idx,
+            "sl_val": sl_val}
 
 
 def label_tables(tmat: np.ndarray) -> dict:
@@ -214,31 +267,37 @@ def label_tables(tmat: np.ndarray) -> dict:
 
 
 def staged_tables(label: dict = None, step: dict = None):
-    """(blob, tab): the tables a kernel copies into shared memory, packed
-    into one int32 blob (f32 tables by their bits), and ``tab``, int32: the
-    word offset of each table of ``LABEL_TABLES`` then ``STEP_TABLES`` in
-    the blob (0 where absent), the number of heavy outputs of the step,
-    and the words of the label part and of the step part.  Every table
-    starts on 16 bytes and each part is a multiple of 16 bytes, so one bulk
-    copy moves the label part, or both parts, into shared memory."""
+    """(blob, tab): the tables a kernel reads, packed into one int32 blob
+    (f32 tables by their bits, uint16 ones two to a word), and ``tab``,
+    int32: the word offset of each
+    table of ``LABEL_TABLES``, ``HEAVY_TABLES`` and ``LIGHT_TABLES`` in the
+    blob (0 where absent), the heavy outputs and light slices of the step
+    (``sliced_tables``), and the words of the label, heavy and light parts.
+    Every table starts on 16 bytes and each part is a multiple of 16
+    bytes, so one bulk copy moves a prefix of the parts into shared
+    memory."""
     words, tab, sizes = [], [], []
     n = 0
-    for names, part in ((LABEL_TABLES, label), (STEP_TABLES, step)):
+    parts = ((LABEL_TABLES, label), (HEAVY_TABLES, step), (LIGHT_TABLES, step))
+    for names, part in parts:
         start = n
         for name in names:
             if part is None:
                 tab.append(0)
                 continue
             a = np.ascontiguousarray(part[name]).reshape(-1)
+            if a.dtype == np.uint16:  # two to a word
+                a = np.concatenate([a, np.zeros(a.size % 2, np.uint16)]).view(np.int32)
             a = a.view(np.int32) if a.dtype == np.float32 else a.astype(np.int32)
             pad = -a.size % 4
             tab.append(n)
             words.append(np.concatenate([a, np.zeros(pad, np.int32)]))
             n += a.size + pad
         sizes.append(n - start)
-    nh = int(step["nz_heavy"]) if step is not None else 0
+    counts = ([step["hv_out"].size, step["sl_out"].shape[0]] if step is not None
+              else [0, 0])
     blob = np.concatenate(words) if words else np.zeros(0, np.int32)
-    return blob, np.asarray(tab + [nh] + sizes, dtype=np.int32)
+    return blob, np.asarray(tab + counts + sizes, dtype=np.int32)
 
 
 def grouped_tables(dec: dict, lat: Lattice) -> dict:

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither ``jax`` nor any module of the
 JAX package ``tagdust_tpu``, and its default engine needs the card.
 
-* an AST scan of every module of ``tagdust_tpu_torch`` and of the two
+* an AST scan of every module of ``tagdust_tpu_torch`` and of the three
   scripts that drive it on the card;
 * a subprocess that runs a small ``-engine torch`` demultiplex through the
   CLI, ``-arch`` detection, the ``-ref`` artifact filter (the plain Myers
@@ -25,7 +25,7 @@ import pytest
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(
     glob.glob(os.path.join(_REPO, "tagdust_tpu_torch", "**", "*.py"), recursive=True)
-) + [os.path.join(_REPO, f) for f in ("chip_smoke.py", "profile_smoke.py")]
+) + [os.path.join(_REPO, f) for f in ("chip_smoke.py", "profile_smoke.py", "step_profile.py")]
 
 
 def _foreign(name: str) -> bool:

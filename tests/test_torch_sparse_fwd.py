@@ -1,11 +1,11 @@
-"""The non-zero step and the non-zero label DP of the dense forward kernel
+"""The step tables and the non-zero label DP of the dense forward kernel
 (K2, ``td_fwd``).
 
-``td_fwd`` walks the non-zero tables of ``Af`` (``tables.sparse_tables``,
-the S state columns and the K barcode-entry columns) and, in its label DP,
+``td_fwd`` walks the step tables of ``Af`` (``tables.sliced_tables``, the
+S state columns and the K barcode-entry columns) and, in its label DP,
 only the sources of each label with a non-zero transition
 (``tables.label_tables``).  The kernel runs only on a card, so these tests
-hold the tables and the plain versions of both (``scan.sparse_step``,
+hold the tables and the plain versions of both (``scan.sliced_step``,
 ``scan.sparse_label_dp``) to the dense forms: the tables rebuild ``Af``
 bit for bit; the step from the tables, one chain per (read, output) in
 ascending input order, equals the chain over every input, zeros included,
@@ -27,8 +27,9 @@ from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
 from tagdust_tpu_torch.engine.lattice import compile_lattice
 from tagdust_tpu_torch.engine.tables import (
     label_tables,
-    sparse_tables,
+    sliced_tables,
     staged_tables,
+    swizzle,
     tables_from_lattice,
 )
 from tagdust_tpu_torch.flagship import (
@@ -71,40 +72,34 @@ def _model(segs):
 
 @functools.lru_cache(maxsize=None)
 def _lib(name):
-    """(model, lattice, tables, non-zero tables of Af) of one library."""
+    """(model, lattice, tables, step tables of Af) of one library."""
     mb = _model(LIBS[name])
     lat = compile_lattice(mb)
     t = tables_from_lattice(mb, lat)
-    return mb, lat, t, sparse_tables(t["Af"])
-
-
-def _t(sp):
-    return [torch.from_numpy(sp[k]) for k in ("nz_ptr", "nz_idx", "nz_val")]
+    return mb, lat, t, sliced_tables(t["Af"], lat.S)
 
 
 @pytest.mark.parametrize("name", list(LIBS))
 def test_sparse_tables_rebuild_Af_bit_for_bit(name):
-    """``sparse_tables(Af)`` lists every non-zero entry of the S state and K
-    entry columns once, ascending inputs, no zero, and rebuilds ``Af``."""
-    _, lat, t, sp = _lib(name)
+    """``sliced_tables(Af)`` lists every non-zero entry of the S state and K
+    entry columns once, each output's inputs ascending real states with a
+    non-zero value under some base, and rebuilds ``Af``."""
+    from test_torch_sparse_step import unsliced
+
+    _, lat, t, sl = _lib(name)
     Af = t["Af"]
     nout = lat.S + int(t["K"])
-    ptr, idx, val = sp["nz_ptr"], sp["nz_idx"], sp["nz_val"]
-    assert ptr.shape == (5, nout + 1) and ptr[4, nout] == idx.size
     back = np.zeros_like(Af)
-    for c in range(5):
-        e0, e1 = ptr[c, 0], ptr[c, nout]
-        dst = np.repeat(np.arange(nout), np.diff(ptr[c]))
-        back[c, idx[e0:e1], dst] = val[e0:e1]
-        same = dst[1:] == dst[:-1]
-        assert (np.diff(idx[e0:e1])[same] > 0).all()
+    nnz = 0
+    for o, idx, val in unsliced(sl, nout):
+        back[:, idx, o] = val.T
+        assert (np.diff(idx) > 0).all() and (idx < lat.S).all() and val.any(axis=1).all()
+        nnz += int(np.count_nonzero(val))
     assert np.array_equal(back.view(np.uint32), Af.view(np.uint32))
-    assert (val != 0).all() and (idx < lat.S).all()
-    np.testing.assert_array_equal(np.sort(sp["nz_out"]), np.arange(nout))
     if name in SIZES:
-        S, K, H, nnz, heavy, tnz = SIZES[name]
+        S, K, H, nz, heavy, tnz = SIZES[name]
         assert (lat.S, int(t["K"]), t["tmat"].shape[0]) == (S, K, H)
-        assert idx.size == nnz and sp["nz_heavy"] == heavy
+        assert nnz == nz and sl["hv_out"].size == heavy
         assert label_tables(t["tmat"])["tm_src"].size == tnz
 
 
@@ -124,22 +119,22 @@ def _chain(x, oh, M):
 @pytest.mark.parametrize("name", ["8x6nt", "flagship", "F+B+S+R", "plate"])
 def test_forward_step_from_the_tables_equals_the_dense_step(name):
     """On random carries >= 0 with exact zeros and random bases (code 5:
-    the zero step), the plain sparse step equals the chain over all of Af
-    bit for bit, and the plain dense step ``x @ Af`` within f32 rounding
-    of another sum order (atol 1e-6, rtol 1e-5)."""
-    _, lat, t, sp = _lib(name)
+    the zero step), the plain step over the tables (swizzled carries, as
+    the kernel runs it) equals the chain over all of Af bit for bit, and
+    the plain dense step ``x @ Af`` within f32 rounding of another sum
+    order (atol 1e-6, rtol 1e-5)."""
+    _, lat, t, sl = _lib(name)
     rng = np.random.default_rng(11)
     B = 12
-    Sr = t["Af"].shape[1]
-    xv = rng.random((B, Sr)).astype(np.float32)
-    xv[rng.random((B, Sr)) < 0.3] = 0.0
-    xv[:, lat.S:] = 0.0  # the carries' pad rows
+    S = lat.S
+    xv = rng.random((B, S)).astype(np.float32)
+    xv[rng.random((B, S)) < 0.3] = 0.0
     x = torch.from_numpy(xv)
     codes = torch.from_numpy(rng.integers(0, 6, B).astype(np.uint8))
     oh = scan._onehot(codes[:, None])[:, 0]
-    got = scan.sparse_step(x, oh, *_t(sp))
-    assert torch.equal(got, _chain(x, oh, torch.from_numpy(t["Af"])))
-    dense = scan._dense_step(torch.from_numpy(t["Afwd"]))(x[:, : lat.S], oh)
+    got = scan.sliced_step(x, oh, sl, S + int(t["K"]))
+    assert torch.equal(got, _chain(x, oh, torch.from_numpy(t["Af"][:, :S])))
+    dense = scan._dense_step(torch.from_numpy(t["Afwd"]))(x, oh)
     torch.testing.assert_close(got, dense, atol=1e-6, rtol=1e-5)
 
 
@@ -200,31 +195,36 @@ def test_label_tables_need_a_non_negative_tmatrix():
 def test_staged_blob_unpacks_to_the_tables():
     """``staged_tables``: every table at its word offset, 16-byte aligned,
     f32 by its bits; each part a multiple of 16 bytes; the scorer's K2 blob
-    holds the label part then the non-zero tables of Af, K1's only those of
-    Ab."""
-    mb, lat, t, sp = _lib("flagship")
+    holds the label part (``lab_idx`` swizzled, as the dense kernels keep
+    their columns) then the heavy and light step tables of Af, K1's only
+    those of Ab."""
+    mb, lat, t, sl = _lib("flagship")
     label = dict(label_tables(t["tmat"]),
                  **{k: t[k] for k in ("lab_ptr", "lab_idx", "ent_state")})
-    blob, tab = staged_tables(label, sp)
+    label["lab_idx"] = swizzle(label["lab_idx"])
+    blob, tab = staged_tables(label, sl)
     names = ("tm_ptr", "tm_src", "tm_val", "tm_diag", "lab_ptr", "lab_idx",
-             "ent_state", "nz_ptr", "nz_idx", "nz_val", "nz_out")
-    assert tab.dtype == np.int32 and tab.shape == (len(names) + 3,)
-    assert tab[len(names)] == sp["nz_heavy"]
-    w_label, w_step = tab[-2:]
-    assert w_label % 4 == 0 and w_step % 4 == 0 and blob.size == w_label + w_step
+             "ent_state", "hv_ptr", "hv_out", "hv_ent", "sl_ptr", "sl_out", "sl_idx",
+             "sl_val")
+    assert tab.dtype == np.int32 and tab.shape == (len(names) + 5,)
+    assert tab[len(names)] == sl["hv_out"].size
+    assert tab[len(names) + 1] == sl["sl_out"].shape[0]
+    w_label, w_heavy, w_light = tab[-3:]
+    assert w_label % 4 == 0 and w_heavy % 4 == 0 and w_light % 4 == 0
+    assert blob.size == w_label + w_heavy + w_light
     for i, name in enumerate(names):
-        want = np.ascontiguousarray(label[name] if i < 7 else sp[name]).reshape(-1)
+        want = np.ascontiguousarray(label[name] if i < 7 else sl[name]).reshape(-1)
         assert tab[i] % 4 == 0
-        got = blob[tab[i] : tab[i] + want.size]
-        np.testing.assert_array_equal(
-            got.view(np.float32) if want.dtype == np.float32 else got, want, err_msg=name)
-    assert tab[7] == w_label  # the step part follows the label part
+        got = blob[tab[i] :].view(want.dtype)[: want.size]
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    # the heavy part follows the label part, the light part the heavy one
+    assert tab[7] == w_label and tab[10] == w_label + w_heavy
     sc = FusedScorer(t)
     np.testing.assert_array_equal(sc.blob_fwd.numpy(), blob)
     np.testing.assert_array_equal(sc.tabs["fwd"], tab)
-    bwd_blob, bwd_tab = staged_tables(None, sparse_tables(t["Ab"]))
+    bwd_blob, bwd_tab = staged_tables(None, sliced_tables(t["Ab"], lat.S))
     np.testing.assert_array_equal(sc.blob_bwd.numpy(), bwd_blob)
-    assert bwd_tab[-2] == 0 and (bwd_tab[:7] == 0).all()
+    assert bwd_tab[-3] == 0 and (bwd_tab[:7] == 0).all()
 
 
 def test_plain_dense_mode_as_the_kernel_runs_it_matches_pallas_interpret(monkeypatch):
@@ -262,11 +262,13 @@ def test_plain_dense_mode_as_the_kernel_runs_it_matches_pallas_interpret(monkeyp
 
     t = tables_from_lattice(jmb, lat)
     sc = FusedScorer(t)
-    steps = {id(sc.Afwd): _t(sparse_tables(t["Af"])), id(sc.Abwd): _t(sparse_tables(t["Ab"]))}
+    S = lat.S
+    steps = {id(sc.Afwd): (sliced_tables(t["Af"], S), S + int(t["K"])),
+             id(sc.Abwd): (sliced_tables(t["Ab"], S), S)}
     lt = {k: torch.from_numpy(v) for k, v in label_tables(t["tmat"]).items()}
     dense_step = scan._dense_step
     monkeypatch.setattr(scan, "_dense_step", lambda M: (
-        lambda x, oh: scan.sparse_step(x, oh, *steps[id(M)])
+        lambda x, oh: scan.sliced_step(x, oh, *steps[id(M)])
         if id(M) in steps else dense_step(M)(x, oh)))
     monkeypatch.setattr(scan, "label_dp", lambda dp, tmat: scan.sparse_label_dp(
         dp, lt["tm_ptr"], lt["tm_src"], lt["tm_val"], lt["tm_diag"]))

@@ -1,15 +1,17 @@
-"""The non-zero tables of the dense backward step (K1, K4).
+"""The tables of the dense backward step (K1, K4).
 
-``tables.sparse_tables`` lists, per base and output state, the non-zero
-entries of ``Ab``; the dense ``td_bwd`` / ``td_bwd_score`` kernels walk only
-those.  The kernels run only on a card, so these tests hold the tables to
-what the kernel relies on: they rebuild ``Ab`` bit for bit, list the inputs
-of each output strictly ascending (the order of the dense fmaf chain) and
-store no zero, and a step computed from them (a gather and ``index_add_``)
-equals the plain dense step ``scan._dense_step(Abwd)`` and ``x @ A[c]^T`` of
-the JAX package's lattice; a transposed table (``Ab`` against ``A``) fails
-the last two.  A whole backward recurrence over the tables is held against
-the JAX scan engine's ``_backward_scores``.
+``tables.sliced_tables`` lays out, per output state, the inputs with a
+non-zero entry of ``Ab`` under some base: the heavy outputs apart, the
+light ones in slices of 32, columns swizzled; the dense ``td_bwd`` /
+``td_bwd_score`` kernels walk those.  The kernels run only on a card, so
+these tests hold the tables to what the kernel relies on: they rebuild
+``Ab`` bit for bit, list the inputs of each output strictly ascending (the
+order of the dense fmaf chain) with zero values only where a base lacks an
+entry or past an output's inputs, and a plain step over them (one chain per
+(read, output), as the kernels run it) equals the chain over every input,
+zeros included, bit for bit, and ``x @ A[c]^T`` of the JAX package's
+lattice within f32 rounding.  A whole backward recurrence over the tables
+is held against the JAX scan engine's ``_backward_scores``.
 """
 
 import functools
@@ -29,19 +31,21 @@ from tagdust_tpu_torch.engine.fused_kernel import FusedScorer
 from tagdust_tpu_torch.engine.tables import (
     HEAVY_INPUTS,
     grouped_tables_from_lattice,
-    sparse_tables,
+    sliced_tables,
     staged_tables,
+    swizzle,
     tables_from_lattice,
 )
-from tagdust_tpu_torch.flagship import generate_barcodes, load_barcodes
+from tagdust_tpu_torch.flagship import PLATE_PATH, generate_barcodes, load_barcodes
 
-# the libraries of the sizes the dense step meets: 8 x 6nt (the dense main
-# path), the flagship, 48 x 8nt, a fingerprint + spacer grammar, and a 68nt
-# spacer with no grouped form
+# the libraries of the sizes the dense step meets: 8 x 6nt (the 8-plex main
+# path), the flagship, 48 x 8nt, the 96 x 8nt plate, a fingerprint + spacer
+# grammar, and a 68nt spacer with no grouped form
 LIBS = {
     "8x6nt": [f"B:{','.join(generate_barcodes(8, 6, 3))}", "R:N"],
     "flagship": [f"B:{','.join(load_barcodes())}", "R:N"],
     "48x8nt": [f"B:{','.join(generate_barcodes(48, 8, 3))}", "R:N"],
+    "plate": [f"B:{','.join(load_barcodes(PLATE_PATH))}", "R:N"],
     "F+B+S+R": ["F:NN", "B:ACGTAC,TGCATG,CCAAGG", "S:TA", "R:N"],
     "S68+R": ["S:" + "ACGT" * 17, "R:N"],
 }
@@ -60,102 +64,130 @@ def _model(segs):
 
 @functools.lru_cache(maxsize=None)
 def _lib(name):
-    """(model, lattice, tables, sparse tables) of one library."""
+    """(model, lattice, tables, step tables of Ab) of one library."""
     mb = _model(LIBS[name])
     lat = compile_lattice(mb)
     t = tables_from_lattice(mb, lat)
-    return mb, lat, t, sparse_tables(t["Ab"])
+    return mb, lat, t, sliced_tables(t["Ab"], lat.S)
 
 
-def _sparse_step(sp, S):
-    """One backward step ``x -> x @ A[base]^T`` from the tables: per base, a
-    gather of the inputs times the values, summed into the outputs with
-    ``index_add_`` (another order than the kernel's chains)."""
-    ptr = torch.from_numpy(sp["nz_ptr"]).long()
-    idx = torch.from_numpy(sp["nz_idx"]).long()
-    val = torch.from_numpy(sp["nz_val"])
+def unsliced(sl, nout):
+    """[(output, inputs [n], values [n, 5])] of every output of the step
+    tables ``sl`` (``sliced_tables``), columns unswizzled (swizzle is its
+    own inverse), the padding past each output's inputs dropped."""
+    out = []
+    hp = sl["hv_ptr"]
+    for h, o in enumerate(sl["hv_out"]):
+        e = sl["hv_ent"][hp[h] : hp[h + 1]]
+        out.append((int(swizzle(o)), swizzle(e[:, 0, 0]), e[:, :, 1].view(np.float32)))
+    sp = sl["sl_ptr"]
+    for i in range(sl["sl_out"].shape[0]):
+        ix = sl["sl_idx"][sp[i] : sp[i + 1]].astype(np.int64)  # [W, 32]
+        vl = sl["sl_val"][sp[i] : sp[i + 1]]  # [W, 5, 32]
+        for lane, o in enumerate(sl["sl_out"][i]):
+            if o < 0:
+                continue
+            idx = swizzle(ix[:, lane])
+            val = vl[:, :, lane]
+            n = max([k + 1 for k in range(len(idx)) if val[k].any()], default=0)
+            out.append((int(swizzle(o)), idx[:n], val[:n]))
+    assert sorted(o for o, _, _ in out) == list(range(nout))
+    return out
 
-    def step(x, oh):
-        out = torch.zeros_like(x)
-        for c in range(5):
-            rows = torch.nonzero(oh[:, c] > 0)[:, 0]
-            e0, e1 = int(ptr[c, 0]), int(ptr[c, S])
-            dst = torch.repeat_interleave(torch.arange(S), ptr[c, 1:] - ptr[c, :-1])
-            terms = x[rows][:, idx[e0:e1]] * val[e0:e1]
-            out[rows] = torch.zeros((rows.numel(), S)).index_add_(1, dst, terms)
-        return out
 
-    return step
+def chain(x, oh, M):
+    """The dense step as one chain per (read, output) over every input in
+    ascending order, zeros included: the order of the kernels' chains."""
+    out = torch.zeros((x.shape[0], M.shape[2]))
+    for c in range(5):
+        rows = oh[:, c] > 0
+        acc = torch.zeros((int(rows.sum()), M.shape[2]))
+        for s in range(x.shape[1]):
+            acc = acc + x[rows, s : s + 1] * M[c, s]
+        out[rows] = acc
+    return out
 
 
 @pytest.mark.parametrize("name", list(LIBS))
 def test_sparse_tables_rebuild_Ab_bit_for_bit(name):
-    _, lat, t, sp = _lib(name)
+    """Every non-zero entry of ``Ab`` is listed once, at its input and
+    base, and nothing else is non-zero."""
+    _, lat, t, sl = _lib(name)
     Ab = t["Ab"]
     S = lat.S
-    ptr = sp["nz_ptr"]
     back = np.zeros_like(Ab)
-    for c in range(5):
-        e0, e1 = ptr[c, 0], ptr[c, S]
-        dst = np.repeat(np.arange(S), np.diff(ptr[c]))
-        back[c, sp["nz_idx"][e0:e1], dst] = sp["nz_val"][e0:e1]
+    for o, idx, val in unsliced(sl, S):
+        back[:, idx, o] = val.T
     assert np.array_equal(back.view(np.uint32), Ab.view(np.uint32))
 
 
 @pytest.mark.parametrize("name", list(LIBS))
 def test_sparse_tables_ascending_without_zeros(name):
-    _, lat, t, sp = _lib(name)
+    """Each output's inputs are strictly ascending real states, each with a
+    non-zero value under some base; the padding of a light slice past an
+    output's inputs is input 0 with value 0; a slice is as wide as its
+    widest output."""
+    _, lat, t, sl = _lib(name)
     S = lat.S
-    ptr, idx, val = sp["nz_ptr"], sp["nz_idx"], sp["nz_val"]
-    assert ptr.dtype == idx.dtype == np.int32 and val.dtype == np.float32
-    assert ptr.shape == (5, S + 1) and idx.shape == val.shape
-    # the bases' runs follow each other in one pair of arrays
-    assert ptr[0, 0] == 0 and ptr[4, S] == idx.size
-    assert (ptr[1:, 0] == ptr[:-1, S]).all() and (np.diff(ptr, axis=1) >= 0).all()
-    for c in range(5):
-        assert ptr[c, S] - ptr[c, 0] == np.count_nonzero(t["Ab"][c])
-    # strictly ascending inputs within each (base, output), all real states
-    out = np.repeat(np.arange(5 * S), np.diff(ptr, axis=1).ravel())
-    same = out[1:] == out[:-1]
-    assert (np.diff(idx)[same] > 0).all()
-    assert (idx >= 0).all() and (idx < S).all()
-    assert (val != 0).all()
+    for o, idx, val in unsliced(sl, S):
+        assert (np.diff(idx) > 0).all() and (idx >= 0).all() and (idx < S).all()
+        assert val.any(axis=1).all()
+        assert np.array_equal(val != 0, (t["Ab"][:, idx, o] != 0).T)
+    sp = sl["sl_ptr"]
+    for i in range(sl["sl_out"].shape[0]):
+        ix, vl = sl["sl_idx"][sp[i] : sp[i + 1]], sl["sl_val"][sp[i] : sp[i + 1]]
+        fans = [int(np.count_nonzero((t["Ab"][:, :, swizzle(o)] != 0).any(axis=0)))
+                for o in sl["sl_out"][i] if o >= 0]
+        assert ix.shape[0] == max(fans, default=0)
+        for lane, f in enumerate(fans):
+            assert (ix[f:, lane] == 0).all() and (vl[f:, :, lane] == 0).all()
+    for k in ("hv_ptr", "hv_out", "hv_ent", "sl_ptr", "sl_out"):
+        assert sl[k].dtype == np.int32
+    assert sl["sl_idx"].dtype == np.uint16 and sl["sl_val"].dtype == np.float32
 
 
-# heavy outputs per library: the silent state that fans out to the barcode
-# entries (45 inputs at 8 x 6nt, 105 on the flagship), and the 68nt spacer's
-# delete-chain closure (51)
-HEAVY = {"8x6nt": 1, "flagship": 1, "48x8nt": 1, "F+B+S+R": 0, "S68+R": 1}
+# heavy outputs per library (more than HEAVY_INPUTS inputs): the silent
+# state that fans out to the barcode entries (45 inputs at 8 x 6nt, 105 on
+# the flagship, 679 on the plate), and the 68nt spacer's delete-chain
+# closure (51)
+HEAVY = {"8x6nt": 1, "flagship": 1, "48x8nt": 1, "plate": 1, "F+B+S+R": 0, "S68+R": 1}
 
 
 @pytest.mark.parametrize("name", list(LIBS))
 def test_sparse_tables_put_heavy_outputs_last(name):
-    """``nz_out`` lists every output once: the light ones ascending, then
-    the ``nz_heavy`` outputs with more than HEAVY_INPUTS inputs under some
-    base, ascending; the kernel gives each of those a warp."""
-    _, lat, _, sp = _lib(name)
-    S = lat.S
-    out, nh = sp["nz_out"], sp["nz_heavy"]
-    assert out.dtype == np.int32 and nh == HEAVY[name]
-    np.testing.assert_array_equal(np.sort(out), np.arange(S))
-    heavy = np.diff(sp["nz_ptr"], axis=1).max(axis=0) > HEAVY_INPUTS
-    np.testing.assert_array_equal(out[S - nh:], np.nonzero(heavy)[0])
-    np.testing.assert_array_equal(out[: S - nh], np.nonzero(~heavy)[0])
+    """The heavy outputs, those with more than HEAVY_INPUTS inputs, are
+    apart, longest first; the light ones fill slices of 32 in ascending
+    order of their inputs' count, -1 past the last; every output once."""
+    _, lat, t, sl = _lib(name)
+    fan = (t["Ab"][:, : lat.S] != 0).any(axis=0).sum(axis=0)
+    hv = swizzle(sl["hv_out"])
+    assert hv.size == HEAVY[name] and (fan[hv] > HEAVY_INPUTS).all()
+    assert (np.diff(fan[hv]) <= 0).all()
+    assert np.array_equal(np.diff(sl["hv_ptr"]), fan[hv])
+    lo = sl["sl_out"].reshape(-1)
+    assert (lo[: (lo >= 0).sum()] >= 0).all()
+    light = swizzle(lo[lo >= 0])
+    assert (fan[light] <= HEAVY_INPUTS).all() and (np.diff(fan[light]) >= 0).all()
+    np.testing.assert_array_equal(np.sort(np.concatenate([hv, light])), np.arange(lat.S))
 
 
 @pytest.mark.parametrize("name", list(LIBS))
 def test_sparse_step_equals_the_dense_step(name):
-    """On random carries and bases (code 5: the zero step), the step from
-    the tables equals the plain dense step and the lattice's A[c]^T; f32
-    sums in another order: atol 1e-6, rtol 1e-5."""
-    _, lat, t, sp = _lib(name)
+    """On random carries >= 0 with exact zeros and random bases (code 5:
+    the zero step), the plain step over the tables equals the chain over
+    all of Ab bit for bit, the plain dense step and the lattice's A[c]^T
+    within f32 rounding of another sum order (atol 1e-6, rtol 1e-5)."""
+    _, lat, t, sl = _lib(name)
     S = lat.S
     rng = np.random.default_rng(7)
     B = 24
-    x = torch.from_numpy(rng.random((B, S)).astype(np.float32))
+    xv = rng.random((B, S)).astype(np.float32)
+    xv[rng.random((B, S)) < 0.3] = 0.0
+    x = torch.from_numpy(xv)
     codes = torch.from_numpy(rng.integers(0, 6, B).astype(np.uint8))
     oh = scan._onehot(codes[:, None])[:, 0]
-    got = _sparse_step(sp, S)(x, oh)
+    got = scan.sliced_step(x, oh, sl, S)
+    assert torch.equal(got, chain(x, oh, torch.from_numpy(t["Ab"][:, :S])))
     dense = scan._dense_step(torch.from_numpy(t["Abwd"]))(x, oh)
     torch.testing.assert_close(got, dense, atol=1e-6, rtol=1e-5)
     ref = np.zeros((B, S))
@@ -185,7 +217,7 @@ def test_sparse_recurrence_matches_jax_backward_scores(name):
     seqs = rng.integers(0, 5, (B, L)).astype(np.uint8)
     lens = rng.integers(72, L + 1, B).astype(np.int32)
     got = scan._backward(torch.from_numpy(seqs), torch.from_numpy(lens),
-                         _sparse_step(sp, lat.S), torch.from_numpy(t["end"]),
+                         lambda x, oh: scan.sliced_step(x, oh, sp, lat.S), torch.from_numpy(t["end"]),
                          int(t["begin"]), spill=False)[2]
     jx = TpuEngine(mb)
     ref = np.asarray(jax.jit(functools.partial(_backward_scores, jx._dev))(
@@ -212,28 +244,29 @@ def test_sparse_tables_of_the_pallas_step_matrix():
     )
     abwd = np.asarray(inspect.getclosurevars(call).nonlocals["Abwd_j"])
     S = lat.S
-    theirs = sparse_tables(abwd.reshape(5, Sp, -1)[:, :, :S])
-    ours = sparse_tables(tables_from_lattice(mb, lat)["Ab"])
+    theirs = sliced_tables(abwd.reshape(5, Sp, -1)[:, :, :S], S)
+    ours = sliced_tables(tables_from_lattice(mb, lat)["Ab"], S)
     assert ours.keys() == theirs.keys()
     for k in ours:
         np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
 
 
 def test_fused_scorer_holds_the_tables_in_dense_mode():
-    """Dense: K1/K4's blob holds the tables of ``Ab`` (a buffer beside
+    """Dense: K1/K4's blob holds the step tables of ``Ab`` (a buffer beside
     ``Ab``) and they get its pointer and the address of its word offsets
     (and no step matrix); grouped: an empty blob, K1/K4 get the span
     tiles, and K2 the forward ones beside its label-DP blob."""
-    mb, lat, t, sp = _lib("flagship")
+    mb, lat, t, sl = _lib("flagship")
     dense = FusedScorer(t)
-    blob, tab = staged_tables(None, sp)
+    blob, tab = staged_tables(None, sl)
     np.testing.assert_array_equal(dense.blob_bwd.numpy(), blob)
     np.testing.assert_array_equal(dense.tabs["bwd"], tab)
-    for i, k in enumerate(("nz_ptr", "nz_idx", "nz_val", "nz_out")):
-        want = sp[k].reshape(-1)
-        got = blob[tab[7 + i] : tab[7 + i] + want.size]
-        np.testing.assert_array_equal(got.view(want.dtype), want)
-    assert tab[11] == sp["nz_heavy"] == 1
+    for i, k in enumerate(("hv_ptr", "hv_out", "hv_ent", "sl_ptr", "sl_out", "sl_idx",
+                           "sl_val")):
+        want = sl[k].reshape(-1)
+        got = blob[tab[7 + i] :].view(want.dtype)[: want.size]
+        np.testing.assert_array_equal(got, want)
+    assert tab[14] == sl["hv_out"].size == 1 and tab[15] == sl["sl_out"].shape[0] == 8
     assert {"Abwd", "blob_bwd", "blob_fwd"} <= {n for n, _ in dense.named_buffers()}
     args = dense._step_args("bwd")
     assert len(args) == 8 and args[:6] == [None] * 6
@@ -245,5 +278,23 @@ def test_fused_scorer_holds_the_tables_in_dense_mode():
     assert len(args) == 8 and args[0] == grouped.g_tile_b.data_ptr() and args[6] is None
     args = grouped._step_args("fwd")
     assert args[0] == grouped.g_tile_f.data_ptr()
-    assert args[6] == grouped.blob_fwd.data_ptr() and grouped.tabs["fwd"][12] > 0
+    assert args[6] == grouped.blob_fwd.data_ptr() and grouped.tabs["fwd"][16] > 0
     assert grouped._key("bwd") == "bwd_grouped" and grouped._key("fwd") == "fwd_grouped"
+
+
+@pytest.mark.parametrize("n", [1, 31, 255, 1555, 2313])
+def test_swizzle_permutes_each_block_of_32(n):
+    """``swizzle`` maps each block of 32 columns onto itself (so a row of n
+    columns fits ``row_stride(n)`` floats, which is odd), is its own
+    inverse, and spreads columns 32 apart over distinct banks."""
+    from tagdust_tpu_torch.engine.tables import row_stride
+
+    s = np.arange(-(-n // 32) * 32)
+    p = swizzle(s)
+    assert np.array_equal(np.sort(p.reshape(-1, 32), axis=1), s.reshape(-1, 32))
+    assert np.array_equal(swizzle(p), s)
+    for lanes in (4, 8, 16, 32):
+        assert row_stride(n, lanes) % 2 == 1 and row_stride(n, lanes) > p[:n].max()
+    for j in range(min(32, n)):
+        col = p[j::32][:32]
+        assert np.unique(col % 32).size == col.size
