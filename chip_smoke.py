@@ -40,10 +40,11 @@ Phases, each fatal on failure (no phase catches its own error):
    barcodes; the engine runs every kernel dense unless grouped is forced,
    so dense must be the faster mode of each; the dense kernels alone on
    the plate + spacer;
-6. main paths, each through the port's CLI entry point with the launch
-   counts set to 0 just before it and read just after; every kernel of the
-   path must have launched, no plain version may run on CUDA tensors,
-   every read must be written, barcode precision >= 0.99:
+6. main paths, each through the port's entry points (a-e the CLI, f the
+   trainer) with the launch counts set to 0 just before it and read just
+   after; every kernel of the path must have launched, no plain version
+   may run on CUDA tensors; a-e: every read must be written, barcode
+   precision >= 0.99:
    a. a default-flag ``tagdust -engine cuda`` run over a generated 1M-read
       flagship FASTQ (per-run calibration, streaming decided labelling);
    b. the same over 200k reads of an 8 x 6nt library (dense step mode);
@@ -62,9 +63,27 @@ Phases, each fatal on failure (no phase catches its own error):
    e. the label-carrying rows: the flagship's 1M reads with ``-start 1
       -end 46`` (the barcode and 40nt of the read) at ``-Q 20``, and its
       20,000-read cross-check against ``-engine exact``;
-   each prints its step mode and the launches of each kernel; a path that
-   streams in fewer than 3 windows, or that re-labelled a chunk one-shot
-   after a failed window, fails;
+   f. training (``train``): the Baum-Welch E-step
+      (``parallel/mesh.py:_expected_lattice_counts``, torch ops reading
+      K1's stack) on the kernels phase's reads of the flagship and the
+      plate: its time beside K1's and its bound, K1's whole output (the
+      stack the E-step reads, its log scales and logP) against its plain
+      version, the card's counts against the same E-step on the host fed
+      the card's stack and, apart, fed the stack of K1's plain version run
+      on the host (first 2,048 reads, rtol 1e-4, atol 1e-6: K1 and the
+      E-step held together), E.sum and CT.sum against the bases scored
+      (1e-4), 4 shards on the card against 1 (rtol 1e-5, atol 1e-6); then
+      one EM iteration over 1M generated flagship reads
+      (``DistributedTrainer.expected_segment_counts``, ``reestimate``):
+      its wall and split (K1, E-step, host mapping, reestimate), K1
+      launched, every re-estimated emission row summing to 1 within 1e-3,
+      and sum logP before and after (reported); then K1's whole output at
+      the shape the iteration gave it (its first sub-batch) against its
+      plain version;
+      the phase's JSON line comes before the card's line;
+   a-e each print their step mode and the launches of each kernel; a path
+   that streams in fewer than 3 windows, or that re-labelled a chunk
+   one-shot after a failed window, fails;
 7. cross-checks against ``-engine exact`` on the first 20,000 reads, at
    ``-Q 20`` (a threshold of 0.0: with ``-Q`` the reference does not
    calibrate): the flagship, the 8-plex, and the ``-arch`` run (the same
@@ -134,7 +153,7 @@ F32_RATE = 67e12
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
 PHASES = ("kernels", "myers", "digest", "gate", "flagship", "8-plex", "arch", "ref", "sub",
-          "cross", "long")
+          "train", "cross", "long")
 
 
 def fail(msg: str) -> None:
@@ -700,15 +719,10 @@ def phase_myers(seed: int, B: int = MYERS_READS) -> dict:
 BARCODE_SUB = 0.05
 
 
-def write_fastq(path: str, n: int, seed: int, barcodes,
-                lengths: tuple = (50, 60), plant=None):
-    """90% of reads: a barcode of the set (5% substitutions) then a random
-    insert, ``lengths`` (50-60nt) in all; 10% random reads.  Returns the
-    true barcode index of each read (-1 for random reads).  With ``plant``
-    (texts), 5% of the reads, all barcoded, carry after their barcode a
-    piece of one of the texts long enough to hold it (half
-    reverse-complemented, 0-2 substitutions); then returns (truth, planted)
-    with the text's index per read, -1 for none."""
+def generate_reads(n: int, seed: int, barcodes, lengths: tuple = (50, 60),
+                   plant=None):
+    """The reads of ``write_fastq``: (seq [n, max length] ASCII, lens, truth,
+    planted)."""
     rng = np.random.default_rng(seed)
     L = lengths[1]
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -737,6 +751,27 @@ def write_fastq(path: str, n: int, seed: int, barcodes,
                 piece[int(rng.integers(w))] = alpha[int(rng.integers(4))]
             seq[i, nb : nb + w] = piece
             planted[i] = j
+    return seq, lens, truth, planted
+
+
+def read_codes(n: int, seed: int, barcodes) -> tuple:
+    """(seqs [n, 60] base codes 0-3, lens int32) of ``generate_reads``."""
+    seq, lens, _, _ = generate_reads(n, seed, barcodes)
+    codes = np.zeros(256, dtype=np.uint8)
+    codes[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
+    return codes[seq], lens.astype(np.int32)
+
+
+def write_fastq(path: str, n: int, seed: int, barcodes,
+                lengths: tuple = (50, 60), plant=None):
+    """90% of reads: a barcode of the set (5% substitutions) then a random
+    insert, ``lengths`` (50-60nt) in all; 10% random reads.  Returns the
+    true barcode index of each read (-1 for random reads).  With ``plant``
+    (texts), 5% of the reads, all barcoded, carry after their barcode a
+    piece of one of the texts long enough to hold it (half
+    reverse-complemented, 0-2 substitutions); then returns (truth, planted)
+    with the text's index per read, -1 for none."""
+    seq, lens, truth, planted = generate_reads(n, seed, barcodes, lengths, plant)
     with open(path, "wb", buffering=1 << 24) as fh:
         step = 100000
         for s in range(0, n, step):
@@ -1181,6 +1216,249 @@ def phase_long(bcs, seed: int, tmp: str) -> dict:
     return dict(stats, peak=peak, differ=len(rows))
 
 
+# the train phase: the E-step at the kernels phase's shape on the flagship
+# and the plate, held on the first TRAIN_HOST_READS reads against the same
+# E-step on the host fed the card's stack and fed the host's plain K1's
+# stack (rtol 1e-4, atol 1e-6: the same sums in another order,
+# index_add_'s atomics on the card, and the host's exp and log, over 64
+# rescaled positions), TRAIN_SHARDS shards against one within the CPU
+# tests' rtol 1e-5 / atol 1e-6; then one EM iteration over TRAIN_READS
+# generated flagship reads.  K1's output, wherever the E-step reads it,
+# is held against its plain version on the same tensors: the stack within
+# atol 1e-6 / rtol 1e-4 (rescaled values of at most 1, the tolerance of
+# K2's posteriors), log scales and logP within atol 1e-4 / rtol 1e-5 (the
+# kernels phase's logpb tolerance)
+TRAIN_HOST_READS = 2048
+TRAIN_SHARDS = 4
+TRAIN_READS = 1_000_000
+HOST_RTOL, HOST_ATOL = 1e-4, 1e-6
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6
+MASS_RTOL = 1e-4
+STACK_ATOL, STACK_RTOL = 1e-6, 1e-4
+LOG_ATOL, LOG_RTOL = 1e-4, 1e-5
+
+
+def k1_against_plain(tag: str, sc, seqs, lens, got) -> dict:
+    """K1's output ``got`` = ``(bstack, blstack, logpb)`` of ``seqs`` /
+    ``lens`` against its plain version on the same tensors, slot by slot on
+    their device; fails outside STACK_* / LOG_*.  -> the max |d| of each."""
+    from tagdust_tpu_torch.engine import scan
+
+    want = scan.backward_pass(seqs, lens, sc.Abwd, sc.end, sc.begin)
+    err, ok = {}, True
+    for name, a, b, atol, rtol in (
+            ("bstack", got[0], want[0], STACK_ATOL, STACK_RTOL),
+            ("blstack", got[1], want[1], LOG_ATOL, LOG_RTOL),
+            ("logpb", got[2][None], want[2][None], LOG_ATOL, LOG_RTOL)):
+        err[name] = 0.0
+        for x, y in zip(a, b):  # slot by slot: no whole-stack temporaries
+            d = (x.double() - y.double()).abs()
+            err[name] = max(err[name], float(d.max()))
+            ok = ok and bool((d <= atol + rtol * y.double().abs()).all())
+    print(f"[{tag}] K1 against its plain version at {tuple(seqs.shape)}: max|d| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err.items()), flush=True)
+    if not ok:
+        fail(f"{tag}: K1's stack, log scales or logP outside their tolerance")
+    return err
+
+
+def estep_bound(eng, seqs, lens) -> dict:
+    """The least time the card could take for the E-step on these inputs:
+    the larger of its bytes (K1's stack and log scales, logP, the reads, the
+    non-zero entries of A as (src, dst, value), CT [5, S, S] and E [5, S]
+    written once) over HBM_RATE, and its f32 operations over F32_RATE: per
+    (read, position) inside the read, under its base c, 2 nnz(A[c]) for
+    ``vn = v A[c]`` and 2 nnz(A[c]) for the transition mass, and 5 S for the
+    emission mass (3) and the rescale (2)."""
+    import torch
+
+    S = eng.lat.S
+    B, Lp = seqs.shape
+    pos = torch.arange(Lp, device=seqs.device)[None, :] < lens[:, None]
+    steps = torch.bincount(seqs.long()[pos], minlength=6)[:5].double().cpu().numpy()
+    nnz = np.array([np.count_nonzero(eng.lat.A[c]) for c in range(5)])
+    nbytes = ((Lp + 1) * B * (S + 1) * 4 + 4 * B + B * Lp + 4 * B + 12 * nnz.sum()
+              + 4 * 5 * S * S + 4 * 5 * S)
+    ops = 4 * (steps @ nnz) + 5 * S * steps.sum()
+    tb, to = 1e3 * nbytes / HBM_RATE, 1e3 * ops / F32_RATE
+    return {"bound_ms": float(max(tb, to)),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def rel_err(a, b, atol: float, rtol: float) -> tuple:
+    """(max |a-b| / (atol + rtol |b|), ok): ok when that is <= 1."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    r = float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+    return r, r <= 1.0
+
+
+def train_lattice(name: str, eng, seed: int, B: int = 16384, Lp: int = 64,
+                  device: str = "cuda") -> dict:
+    """The E-step on the kernels phase's reads: its time beside K1's and its
+    bound, K1's output against its plain version, the card against the host
+    on the first TRAIN_HOST_READS reads (fed the card's stack, and fed the
+    stack of K1's plain version on the host), the mass invariants over all
+    reads, TRAIN_SHARDS shards against one (``device="cpu"``: the same
+    checks on the host, untimed)."""
+    import torch
+
+    from tagdust_tpu_torch.engine import scan
+    from tagdust_tpu_torch.parallel import mesh
+    from tagdust_tpu_torch.parallel.mesh import DistributedTrainer
+
+    tag = f"train {name} S={eng.lat.S}"
+    rng = np.random.default_rng(seed)
+    seqs_np = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    lens_np = rng.integers(40, Lp + 1, B).astype(np.int32)
+    seqs = torch.from_numpy(seqs_np).to(device)
+    lens = torch.from_numpy(lens_np).to(device)
+    sc = eng.scorer
+    stack = sc.backward(seqs, lens)
+    tab = mesh.count_tables(eng.lat, device)
+    estep = lambda: mesh._expected_lattice_counts(  # noqa: E731
+        eng, seqs, lens, stack=stack, tables=tab)
+    CT, E, n = estep()
+    n = int(n)
+    cuda = device == "cuda"
+    k1_ms = timed(lambda: sc.backward(seqs, lens)) if cuda else float("nan")
+    es_ms = timed(estep) if cuda else float("nan")
+    bd = estep_bound(eng, seqs, lens)
+    k1 = k1_against_plain(tag, sc, seqs, lens, stack)
+
+    h = TRAIN_HOST_READS
+    sub = (stack[0][:, :h], stack[1][:, :h], stack[2][:h])
+    hs, hl = seqs[:h].cpu(), lens[:h].cpu()
+    t0 = time.perf_counter()
+    hc = mesh._expected_lattice_counts(eng, hs, hl, stack=tuple(x.cpu() for x in sub))
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pstack = scan.backward_pass(hs, hl, sc.Abwd.cpu(), sc.end.cpu(), sc.begin)
+    pc = mesh._expected_lattice_counts(eng, hs, hl, stack=pstack)
+    plain_s = time.perf_counter() - t0
+    cc = mesh._expected_lattice_counts(eng, seqs[:h], lens[:h], stack=sub, tables=tab)
+    host = [rel_err(a.cpu().numpy(), b.numpy(), HOST_ATOL, HOST_RTOL)
+            for a, b in zip(cc[:2], hc[:2])]
+    plain = [rel_err(a.cpu().numpy(), b.numpy(), HOST_ATOL, HOST_RTOL)
+             for a, b in zip(cc[:2], pc[:2])]
+    del stack, sub, pstack
+    if cuda:
+        torch.cuda.empty_cache()
+
+    e_mass = abs(float(E.double().sum()) - n) / n
+    ct_mass = abs(float(CT.double().sum()) - n) / n
+    one = DistributedTrainer(eng).run(seqs_np, lens_np)
+    many = DistributedTrainer(eng, [device] * TRAIN_SHARDS).run(seqs_np, lens_np)
+    shards = [rel_err(a, b, SHARD_ATOL, SHARD_RTOL) for a, b in zip(many[:2], one[:2])]
+    print(f"[{tag}] B={B}, Lp={Lp}: E-step {es_ms:.3f} ms, K1 {k1_ms:.3f} ms, bound "
+          f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); card against host on "
+          f"{h} reads (host E-step {host_s:.1f} s): CT {host[0][0]:.3g}, E "
+          f"{host[1][0]:.3g} of the tolerance on the card's stack, CT "
+          f"{plain[0][0]:.3g}, E {plain[1][0]:.3g} on the host's plain K1 "
+          f"({plain_s:.1f} s); |E.sum - n| / n {e_mass:.3g}, "
+          f"|CT.sum - n| / n {ct_mass:.3g} (n {n}); {TRAIN_SHARDS} shards against "
+          f"1: CT {shards[0][0]:.3g}, E {shards[1][0]:.3g} of the tolerance, "
+          f"n {many[2]} / {one[2]}", flush=True)
+    if not all(ok for _, ok in host):
+        fail(f"{tag}: the card's counts differ from the host's on the same stack")
+    if not all(ok for _, ok in plain):
+        fail(f"{tag}: the card's K1 and E-step differ from the host's plain K1 "
+             "and E-step")
+    if max(e_mass, ct_mass) > MASS_RTOL:
+        fail(f"{tag}: E.sum or CT.sum is not the bases scored")
+    if not all(ok for _, ok in shards) or len({many[2], one[2], n}) != 1:
+        fail(f"{tag}: {TRAIN_SHARDS} shards differ from 1")
+    return {"estep_ms": es_ms, "k1_ms": k1_ms, **bd, "host_err": host[0][0],
+            "host_err_E": host[1][0], "plain_err": plain[0][0],
+            "plain_err_E": plain[1][0], "k1_stack_err": k1["bstack"],
+            "k1_log_err": max(k1["blstack"], k1["logpb"]),
+            "e_mass": e_mass, "ct_mass": ct_mass,
+            "shard_err": shards[0][0], "shard_err_E": shards[1][0]}
+
+
+def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
+                device: str = "cuda", **shape) -> dict:
+    """The training path: ``train_lattice`` on the flagship and the plate,
+    then one EM iteration over ``n_reads`` generated flagship reads
+    (``DistributedTrainer.expected_segment_counts``, then ``reestimate``)
+    with the launch counts set to 0 just before it and read just after:
+    K1 must have launched and no plain version run on CUDA tensors, and
+    every re-estimated emission row must sum to 1 within 1e-3.  Sum logP
+    (K4) before and after is reported, not gated.  ``device="cpu"`` and a
+    smaller ``shape`` (B, Lp) run the same on the host."""
+    import torch
+
+    from tagdust_tpu_torch.engine import fused_kernel, scan
+    from tagdust_tpu_torch.engine.cuda import CudaEngine
+    from tagdust_tpu_torch.engine.train import reestimate
+    from tagdust_tpu_torch.parallel import mesh
+    from tagdust_tpu_torch.parallel.mesh import DistributedTrainer
+
+    out = {}
+    for name in ("flagship", "plate"):
+        eng = CudaEngine(library_model(sets[name]), device)
+        out[name] = train_lattice(name, eng, seed, device=device, **shape)
+        del eng
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    seqs, lens = read_codes(n_reads, seed + 5, sets["flagship"])
+    eng = CudaEngine(library_model(sets["flagship"]), device)
+    print(f"[train em] {n_reads} flagship reads generated and the engine built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    trainer = DistributedTrainer(eng)
+    for k in fused_kernel.LAUNCHES:
+        fused_kernel.LAUNCHES[k] = 0
+    scan.PLAIN_CUDA_CALLS["count"] = 0
+    mesh.TIMINGS.update(backward_s=0.0, estep_s=0.0, map_s=0.0)
+    t0 = time.perf_counter()
+    counts = trainer.expected_segment_counts(seqs, lens)
+    t1 = time.perf_counter()
+    mb2 = reestimate(eng.mb, counts)
+    t2 = time.perf_counter()
+    launches = dict(fused_kernel.LAUNCHES)
+    plain = scan.PLAIN_CUDA_CALLS["count"]
+    split = dict(mesh.TIMINGS, reestimate_s=t2 - t1)
+    worst = 0.0
+    for m in mb2.models:
+        for em in (m.m_emit, m.i_emit):
+            rows = np.exp(np.asarray(em, np.float64)).sum(axis=-1)
+            worst = max(worst, float(np.abs(rows - 1.0).max()))
+    before = float(eng.backward_scores(seqs, lens).astype(np.float64).sum())
+    after = float(CudaEngine(mb2, device).backward_scores(seqs, lens)
+                  .astype(np.float64).sum())
+    print(f"[train em] one EM iteration over {n_reads} flagship reads: "
+          f"{t2 - t0:.2f} s wall; K1 {split['backward_s']:.2f} s, E-step "
+          f"{split['estep_s']:.2f} s, host mapping {split['map_s']:.2f} s, "
+          f"reestimate {split['reestimate_s']:.3f} s; launches {launches}, "
+          f"plain-on-CUDA calls {plain}; emission rows sum to 1 within {worst:.3g}; "
+          f"sum logP before {before:.1f}, after {after:.1f}", flush=True)
+    if device == "cuda" and launches["bwd"] <= 0:
+        fail(f"train: K1 never launched on the EM iteration: {launches}")
+    if plain:
+        fail(f"train: plain versions ran {plain} times on CUDA tensors")
+    if worst > 1e-3:
+        fail(f"train: a re-estimated emission row sums to 1 +- {worst:.3g}")
+
+    # K1's whole output at the shape the EM iteration gave it (its first
+    # sub-batch) against its plain version on the same tensors, after the
+    # counts were read
+    step = min(n_reads, eng.STACK_BYTES // mesh.estep_bytes(eng, 1, seqs.shape[1]))
+    s = torch.from_numpy(seqs[:step]).to(device)
+    ln = torch.from_numpy(lens[:step]).to(device)
+    got = eng.scorer.backward(s, ln)
+    k1 = k1_against_plain("train em", eng.scorer, s, ln, got)
+    del got
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["em"] = {"reads": n_reads, "wall_s": t2 - t0, **split,
+                 "logP_before": before, "logP_after": after, "row_err": worst,
+                 "k1_stack_err": k1["bstack"],
+                 "k1_log_err": max(k1["blstack"], k1["logpb"]), "launches": launches}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1260,6 +1538,10 @@ def main() -> int:
             m = paths["flagship"]
             paths["sub"] = phase_sub(sets["flagship"], m["fq"], m["truth"], args.reads,
                                      tmp)
+        if on("train"):
+            train = phase_train(sets, args.seed)
+            paths["train"] = {"launches": train["em"]["launches"]}
+            print(f"train times above on: {card}", flush=True)
         for r in paths.values():
             for k in launches:
                 launches[k] += r["launches"][k]
@@ -1296,6 +1578,8 @@ def main() -> int:
          "library_ms": None}
         for key, name, rep, model in KERNELS if (key, model) in timing
     ]}
+    if on("train"):
+        print(json.dumps({"train": train}))
     print(card_line())
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes in three main paths of tagdust_tpu_torch, on one CUDA card.
+"""Where the time goes in the main paths of tagdust_tpu_torch, on one CUDA card.
 
     python3 profile_smoke.py [--seed N] [--reads N] [--out DIR] [--paths P,...]
 
@@ -14,7 +14,9 @@ device time and launches of every device op of the profiled run, the
 device's busy time (the union of its op intervals) against that run's wall,
 and the card's name and power limit; writes each path's
 ``key_averages`` table to ``DIR/<path>.txt`` (default ``build/profile``,
-git-ignored).
+git-ignored).  ``--paths train`` (not run by default) profiles one
+Baum-Welch EM iteration over the flagship reads and the plate's E-step
+alone the same way (its unprofiled runs print the trainer's split).
 """
 
 from __future__ import annotations
@@ -61,9 +63,6 @@ def busy_seconds(prof) -> float:
 
 
 def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from tagdust_tpu_torch import controller, filters
 
     def run(k: int) -> float:
@@ -71,9 +70,7 @@ def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
         return cs.run_tagdust([*args, "-o", os.path.join(tmp, f"{name}_{k}"),
                                "-engine", "cuda"])
 
-    run(0)
-    for k in (1, 2):
-        wall = run(k)
+    def report(k: int, wall: float) -> None:
         print(f"[{name}] unprofiled run {k}: {wall:.2f} s wall, detection "
               f"{controller.TIMINGS['detection']:.2f} s, calibration "
               f"{controller.TIMINGS['calibration']:.2f} s", flush=True)
@@ -82,6 +79,72 @@ def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
             print(f"[{name}]   artifact filter, {rt['calls']} calls: host gather "
                   f"{rt['gather_s']:.2f} s, host masks {rt['masks_s']:.2f} s, device "
                   f"(upload, td_myers, fetch) {rt['lanes_s']:.2f} s", flush=True)
+
+    profile_runs(name, run, report, out_dir)
+
+
+def profile_train(seed: int, n_reads: int, out_dir: str) -> None:
+    """One EM iteration over ``n_reads`` generated flagship reads
+    (``DistributedTrainer.expected_segment_counts``, then ``reestimate``;
+    the reads of ``chip_smoke.py``'s train phase), and the plate's E-step
+    alone on the kernels phase's 16,384 reads (K1's stack given)."""
+    import numpy as np
+    import torch
+
+    from tagdust_tpu_torch.engine.cuda import CudaEngine
+    from tagdust_tpu_torch.engine.train import reestimate
+    from tagdust_tpu_torch.parallel import mesh
+
+    sets = cs.barcode_sets()
+    seqs, lens = cs.read_codes(n_reads, seed + 5, sets["flagship"])
+    eng = CudaEngine(cs.library_model(sets["flagship"]), "cuda")
+    trainer = mesh.DistributedTrainer(eng)
+
+    def em(k: int) -> float:
+        mesh.TIMINGS.update(backward_s=0.0, estep_s=0.0, map_s=0.0)
+        t0 = time.perf_counter()
+        reestimate(eng.mb, trainer.expected_segment_counts(seqs, lens))
+        return time.perf_counter() - t0
+
+    def em_report(k: int, wall: float) -> None:
+        t = mesh.TIMINGS
+        print(f"[train] unprofiled run {k}: {wall:.2f} s wall, K1 {t['backward_s']:.2f} "
+              f"s, E-step {t['estep_s']:.2f} s, host mapping {t['map_s']:.2f} s",
+              flush=True)
+
+    profile_runs("train", em, em_report, out_dir)
+    del eng, trainer
+    plate = CudaEngine(cs.library_model(sets["plate"]), "cuda")
+    rng = np.random.default_rng(seed)
+    B, Lp = 16384, 64
+    s = torch.from_numpy(rng.integers(0, 4, (B, Lp)).astype(np.uint8)).cuda()
+    ln = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).cuda()
+    stack = plate.scorer.backward(s, ln)
+    tab = mesh.count_tables(plate.lat, "cuda")
+
+    def estep(k: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh._expected_lattice_counts(plate, s, ln, stack=stack, tables=tab)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    profile_runs("estep-plate", estep,
+                 lambda k, wall: print(f"[estep-plate] unprofiled run {k}: "
+                                       f"{wall * 1e3:.1f} ms wall", flush=True), out_dir)
+
+
+def profile_runs(name: str, run, report, out_dir: str) -> None:
+    """One warm-up ``run(0)``, two reported unprofiled runs, then one under
+    torch.profiler: its wall, the device's busy share and the device time
+    and launches of its longest ops; the key_averages table goes to
+    ``out_dir/<name>.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(0)
+    for k in (1, 2):
+        report(k, run(k))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run(3)
         torch.cuda.synchronize()
@@ -99,7 +162,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=1_000_000)
     ap.add_argument("--out", default=os.path.join("build", "profile"))
-    ap.add_argument("--paths", default="flagship,arch,ref")
+    ap.add_argument("--paths", default="flagship,arch,ref",
+                    help="of flagship, arch, ref and train (one EM iteration, "
+                    "then the plate's E-step alone)")
     args = ap.parse_args()
     paths = args.paths.split(",")
 
@@ -130,6 +195,8 @@ def main() -> int:
             fa = cs.write_contaminants(tmp, texts)[0]
             profile_path("ref", [*flagship, fq, "-ref", fa, "-fe", str(cs.REF_FE)],
                          tmp, args.out)
+        if "train" in paths:
+            profile_train(args.seed, args.reads, args.out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"times above on: {cs.card_line()}")

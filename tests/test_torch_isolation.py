@@ -7,8 +7,8 @@ JAX package ``tagdust_tpu``, and its default engine needs the card.
   CLI, ``-arch`` detection, the ``-ref`` artifact filter (the plain Myers
   lanes) and a ``-start/-end`` decode (the label-carrying rows) included,
   and then finds neither ``jax`` nor ``tagdust_tpu`` in ``sys.modules``;
-* a subprocess that imports the auxiliary tools and the Myers module and
-  finds the same;
+* a subprocess that imports the auxiliary tools, the Myers module and the
+  training modules (``engine.train``, ``parallel.mesh``) and finds the same;
 * a subprocess in which ``torch.cuda.is_available`` is False: the default
   ``-engine auto`` raises, as ``-engine cuda`` does (decided in the
   subprocess, so every test worker collects the same tests).
@@ -94,6 +94,7 @@ import json, sys
 import tagdust_tpu_torch.cli.simreads, tagdust_tpu_torch.cli.evalres
 import tagdust_tpu_torch.cli.merge_tool, tagdust_tpu_torch.cli.rename_qiime
 import tagdust_tpu_torch.engine.myers
+import tagdust_tpu_torch.engine.train, tagdust_tpu_torch.parallel.mesh
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tagdust_tpu"))))
 """
@@ -103,7 +104,8 @@ def test_the_tools_and_the_myers_module_load_no_module_of_jax():
     names = {os.path.relpath(f, _REPO) for f in FILES}
     for tool in ("simreads", "evalres", "merge_tool", "rename_qiime"):
         assert f"tagdust_tpu_torch/cli/{tool}.py" in names
-    assert "tagdust_tpu_torch/engine/myers.py" in names
+    for mod in ("engine/myers.py", "engine/train.py", "parallel/mesh.py"):
+        assert f"tagdust_tpu_torch/{mod}" in names
     res = subprocess.run([sys.executable, "-c", _TOOLS], check=True,
                          capture_output=True, text=True, cwd=_REPO, env=_env())
     assert res.stdout.strip().splitlines()[-1] == "[]"
