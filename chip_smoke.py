@@ -46,7 +46,8 @@ Phases, each fatal on failure (no phase catches its own error):
    may run on CUDA tensors; a-e: every read must be written, barcode
    precision >= 0.99:
    a. a default-flag ``tagdust -engine cuda`` run over a generated 1M-read
-      flagship FASTQ (per-run calibration, streaming decided labelling);
+      flagship FASTQ (per-run calibration, streaming decided labelling),
+      with ``-seed`` fixed so that g and h select its threshold;
    b. the same over 200k reads of an 8 x 6nt library (dense step mode);
    c. ``tagdust -arch`` over a generated 1M-read 96-plex FASTQ with the
       flagship, the plate and R:N as candidates: detection on the card
@@ -81,6 +82,25 @@ Phases, each fatal on failure (no phase catches its own error):
       the shape the iteration gave it (its first sub-batch) against its
       plain version;
       the phase's JSON line comes before the card's line;
+   g. ``multihost``: a's command as ``-multihost`` with two processes on the
+      one card (gloo on 127.0.0.1), each this script in its child mode
+      (``--child``: the CLI in-process, then one JSON line of its wall,
+      launches, streaming counters, plain calls on CUDA tensors and
+      ``max_memory_allocated``); the card must be in the Default compute
+      mode; every merged file must have the sha256 of a's, the shards and
+      sidecars must be gone, both logfiles must give a's threshold and
+      totals, each process must launch K1, K2 and K3, host 1 must stream in
+      >= 3 windows, and each host must parse exactly the records of the
+      chunks it owns (``TAGDUST_TPU_IO_STATS``), skipping the rest;
+   h. ``mesh``: ``ShardedScorer`` over [cuda:0, cuda:0]: its decided and
+      label-carrying rows against ``CudaEngine``'s (sha256) at B = 16,384,
+      Lp = 64 on the flagship and the plate, ``DistributedTrainer`` over
+      the two shards against one (rtol 1e-5, atol 1e-6; E.sum = CT.sum =
+      the bases scored, 1e-4), then a's command with
+      ``runner.local_devices`` replaced in-process by the two shards: a's
+      output bytes, >= 3 windows through the shards, K1-K3 launched, and
+      the card's peak allocation above what the run found allocated inside
+      ``STACK_BYTES``;
    a-e each print their step mode and the launches of each kernel; a path
    that streams in fewer than 3 windows, or that re-labelled a chunk
    one-shot after a failed window, fails;
@@ -153,7 +173,7 @@ F32_RATE = 67e12
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
 PHASES = ("kernels", "myers", "digest", "gate", "flagship", "8-plex", "arch", "ref", "sub",
-          "train", "cross", "long")
+          "train", "multihost", "mesh", "cross", "long")
 
 
 def fail(msg: str) -> None:
@@ -912,12 +932,12 @@ def phase_main(name: str, bcs, seed: int, n_reads: int, tmp: str,
     print(f"[{name}] generated {n_reads} reads in {time.perf_counter() - t0:.1f} s",
           flush=True)
     out = os.path.join(tmp, f"{name}_out")
-    res = run_path(name, ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-o", out,
-                          "-engine", "cuda", *flags],
+    args = ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-engine", "cuda", *flags]
+    res = run_path(name, args + ["-o", out],
                    path_kernels(name, bcs) + (["myers"] if plant is not None else []))
     print(f"[{name}] {n_reads / res['wall_s']:.0f} reads/s", flush=True)
     check_output(name, out, bcs, truth)
-    return dict(res, fq=fq, out=out, truth=truth, planted=planted)
+    return dict(res, fq=fq, out=out, truth=truth, planted=planted, args=args)
 
 
 # -fe of the -ref path: the extracted read keeps its barcode positions as
@@ -1459,6 +1479,305 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     return out
 
 
+# the multihost phase: two processes of ``-multihost`` on the one card, each
+# this script in its child mode (``--child``), the CLI in-process; and the
+# mesh phase: ShardedScorer over two shards on the card
+MH_TIMEOUT = 300
+MESH_Q = 10.0
+MESH_MINLEN = 16
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def sha256_file(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+SUMMARY_KEYS = ("total input reads", "selected threshold", "successfully extracted",
+                "problems with architecture", "barcode / UMI not found", "too short",
+                "low complexity", "match artifacts:")
+
+
+def summary(logfile: str) -> dict:
+    """The end-of-run totals and the selected threshold of a logfile."""
+    out = {}
+    with open(logfile) as fh:
+        for line in fh:
+            for key in SUMMARY_KEYS:
+                if line.rstrip("\n").endswith("\t" + key):
+                    out[key] = line.split("]", 1)[1].strip().split("\t")[0]
+    return out
+
+
+def same_outputs(name: str, single: str, other: str) -> int:
+    """Every ``<single>_*.fq`` has the sha256 of ``<other>`` with the same
+    suffix; -> the files compared."""
+    d, base = os.path.split(single)
+    files = sorted(f for f in os.listdir(d) if f.startswith(base + "_") and f.endswith(".fq"))
+    if not files:
+        fail(f"{name}: no output of the single-process run to compare")
+    for f in files:
+        got = other + f[len(base):]
+        if not os.path.exists(got) or sha256_file(got) != sha256_file(os.path.join(d, f)):
+            fail(f"{name}: {os.path.basename(got)} differs from the single-process {f}")
+    return len(files)
+
+
+def owned_records(n: int, nproc: int, pid: int) -> int:
+    """Records of n in the chunks process ``pid`` of ``nproc`` owns, under
+    the controller's chunk schedule (``TAGDUST_TPU_CHUNK``,
+    ``TAGDUST_TPU_FIRST_CHUNK``)."""
+    chunk = int(os.environ.get("TAGDUST_TPU_CHUNK") or 1000000)
+    first = min(chunk, int(os.environ.get("TAGDUST_TPU_FIRST_CHUNK", "131072")))
+    owned = start = c = 0
+    while start < n:
+        size = min(first if c == 0 else chunk, n - start)
+        owned += size if c % nproc == pid else 0
+        start += size
+        c += 1
+    return owned
+
+
+def child(cli_args) -> int:
+    """``--child``: one process of the multihost phase.  Creates the CUDA
+    context and loads the kernels first (``setup_s``: the parent has paid
+    both before its single-process run), then runs the CLI in-process and
+    prints one JSON line: its wall, calibration, the launches, the
+    streaming counters, the plain versions' calls on CUDA tensors and
+    ``max_memory_allocated``."""
+    import torch
+
+    cuda = cli_args[cli_args.index("-engine") + 1] == "cuda"
+    if cuda and not torch.cuda.is_available():
+        fail("no CUDA device")
+    from tagdust_tpu_torch import controller
+    from tagdust_tpu_torch.engine import build, fused_kernel, runner, scan
+
+    t0 = time.perf_counter()
+    if cuda:
+        torch.zeros(1, device="cuda")  # the context is created lazily
+        torch.cuda.synchronize()
+        build.lib()
+    setup = time.perf_counter() - t0
+    wall = run_tagdust(cli_args)
+    print(json.dumps({"wall_s": wall, "setup_s": setup,
+                      "calibration_s": controller.TIMINGS["calibration"],
+                      "launches": dict(fused_kernel.LAUNCHES),
+                      "stream": dict(runner.STREAM_STATS),
+                      "plain_cuda": scan.PLAIN_CUDA_CALLS["count"],
+                      "max_mem": torch.cuda.max_memory_allocated() if cuda else 0}),
+          flush=True)
+    return 0
+
+
+def phase_multihost(single: dict, tmp: str) -> dict:
+    """``tagdust -multihost`` as two processes on the one card, each the
+    flagship phase's command (``single["args"]``): every merged file must have the
+    sha256 of the flagship phase's, the shards and sidecars must be gone,
+    both logfiles must give the single run's threshold and totals, each
+    process must launch K1, K2 and K3 with no plain version on CUDA tensors,
+    host 1 must stream in >= 3 windows with no one-shot after a failure, and
+    each host must parse exactly the records of the chunks it owns, skipping
+    the rest.  A command with ``-engine torch`` rehearses the same on the
+    host's CPU (no card, no launches)."""
+    cuda = single["args"][single["args"].index("-engine") + 1] == "cuda"
+    if cuda:
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        print(f"[multihost] compute mode: {mode}", flush=True)
+        if mode != "Default":
+            fail(f"multihost: the card's compute mode is {mode}, not Default: two "
+                 "processes cannot share it")
+    n = int(single["truth"].shape[0])
+    out = os.path.join(tmp, "mh_out")
+    args = single["args"] + ["-o", out, "-multihost", "-coordinator",
+                             f"127.0.0.1:{free_port()}", "-nprocs", "2"]
+    env = dict(os.environ, TAGDUST_TPU_IO_STATS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child",
+         json.dumps(args + ["-procid", str(pid)])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for pid in range(2)]
+    try:
+        res = [p.communicate(timeout=MH_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, (_, err)) in enumerate(zip(procs, res)):
+        if p.returncode != 0:
+            fail(f"multihost: host {pid} exited with {p.returncode}:\n{err[-4000:]}")
+    hosts = [json.loads(o.strip().splitlines()[-1]) for o, _ in res]
+    for pid, h in enumerate(hosts):
+        with open(f"{out}.h{pid}.iostats.json") as fh:
+            h["io"] = json.load(fh)
+        cal = h["calibration_s"]
+        print(f"[multihost] host {pid}: {h['setup_s']:.2f} s to create its CUDA "
+              f"context and load the kernels, then {h['wall_s']:.2f} s in the CLI "
+              f"(calibration {'-' if cal is None else f'{cal:.2f} s'}), launches "
+              f"{h['launches']}, streaming {h['stream']}, plain-on-CUDA calls "
+              f"{h['plain_cuda']}, max_memory_allocated {h['max_mem']} bytes, records "
+              f"parsed {h['io']['parsed']} / skipped {h['io']['skipped']}", flush=True)
+    print(f"[multihost] 2 processes on one card: {wall:.2f} s wall (the flagship "
+          f"phase's single process: {single['wall_s']:.2f} s in the CLI)", flush=True)
+    files = same_outputs("multihost", single["out"], out)
+    left = [f for f in os.listdir(tmp) if f.startswith("mh_out.h")
+            and not f.endswith(("_logfile.txt", ".iostats.json"))]
+    if left:
+        fail(f"multihost: shards or sidecars left: {left}")
+    want = summary(single["out"] + "_logfile.txt")
+    for lf in (out + "_logfile.txt", out + ".h1_logfile.txt"):
+        if summary(lf) != want:
+            fail(f"multihost: {os.path.basename(lf)} reports {summary(lf)}, the "
+                 f"single run {want}")
+    for pid, h in enumerate(hosts):
+        missing = [k for k in ("bwd", "fwd", "tb") if cuda and h["launches"][k] <= 0]
+        if missing:
+            fail(f"multihost: host {pid} never launched {missing}")
+        if h["plain_cuda"]:
+            fail(f"multihost: host {pid} ran plain versions {h['plain_cuda']} times "
+                 "on CUDA tensors")
+        own = owned_records(n, 2, pid)
+        if h["io"]["parsed"] != own or h["io"]["parsed"] + h["io"]["skipped"] != n:
+            fail(f"multihost: host {pid} parsed {h['io']['parsed']} and skipped "
+                 f"{h['io']['skipped']} records; it owns {own} of {n}")
+    if hosts[1]["stream"]["windows"] < 3 or hosts[1]["stream"]["oneshot_after_failure"]:
+        fail(f"multihost: host 1 streamed {hosts[1]['stream']}")
+    print(f"[multihost] {files} merged files equal the single run's, the logfiles "
+          f"its totals ({want})", flush=True)
+    return {"wall_s": wall, "hosts": hosts, "launches": {
+        k: sum(h["launches"][k] for h in hosts) for k in hosts[0]["launches"]}}
+
+
+def mesh_rows(name: str, eng, seed: int, device: str = "cuda", B: int = 16384,
+              Lp: int = 64) -> None:
+    """ShardedScorer over two shards on ``device``: its decided and
+    label-carrying rows have the sha256 of the engine's on the kernels
+    phase's reads."""
+    import torch
+
+    from tagdust_tpu_torch.parallel.mesh import ShardedScorer
+
+    rng = np.random.default_rng(seed)
+    seqs = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    lens = rng.integers(40, Lp + 1, B).astype(np.int32)
+    sc = ShardedScorer(eng, [device, device])
+    thr32 = eng.threshold_f32_ceil(MESH_Q)
+    got = {}
+    for mode, one, two in (
+            ("decided", lambda: [eng.dispatch_decided(seqs, lens, thr32, MESH_MINLEN)],
+             lambda: sc.dispatch_decided(seqs, lens, thr32, MESH_MINLEN)),
+            ("label-carrying", lambda: [eng.dispatch_packed(seqs, lens)],
+             lambda: sc.dispatch_packed(seqs, lens))):
+        got[mode] = [digest(torch.cat(f())) for f in (one, two)]
+    print(f"[mesh {name}] 2 shards on {device} against one engine, B={B}, Lp={Lp}: "
+          + ", ".join(f"{m} rows {a[:16]} / {b[:16]}" for m, (a, b) in got.items()),
+          flush=True)
+    if any(a != b for a, b in got.values()):
+        fail(f"mesh {name}: the sharded rows differ from the engine's")
+
+
+def mesh_trainer(eng, seed: int, device: str = "cuda", B: int = 16384,
+                 Lp: int = 64) -> dict:
+    """DistributedTrainer over two shards on ``device`` against one shard
+    (rtol 1e-5, atol 1e-6), E.sum and CT.sum against the bases scored
+    (1e-4)."""
+    from tagdust_tpu_torch.parallel.mesh import DistributedTrainer
+
+    rng = np.random.default_rng(seed + 1)
+    seqs = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    lens = rng.integers(40, Lp + 1, B).astype(np.int32)
+    one = DistributedTrainer(eng).run(seqs, lens)
+    two = DistributedTrainer(eng, [device, device]).run(seqs, lens)
+    errs = [rel_err(a, b, SHARD_ATOL, SHARD_RTOL) for a, b in zip(two[:2], one[:2])]
+    n = int(lens.sum())
+    mass = [abs(float(x.astype(np.float64).sum()) - n) / n for x in two[:2]]
+    print(f"[mesh trainer] 2 shards on {device} against 1: CT {errs[0][0]:.3g}, E "
+          f"{errs[1][0]:.3g} of the tolerance; |CT.sum - n| / n {mass[0]:.3g}, "
+          f"|E.sum - n| / n {mass[1]:.3g} (n {n}, {two[2]} / {one[2]})", flush=True)
+    if not all(ok for _, ok in errs) or two[2] != one[2] or one[2] != n:
+        fail("mesh: the trainer's two shards differ from one")
+    if max(mass) > MASS_RTOL:
+        fail("mesh: E.sum or CT.sum is not the bases scored")
+    return {"shard_err": errs[0][0], "shard_err_E": errs[1][0], "ct_mass": mass[0],
+            "e_mass": mass[1]}
+
+
+def phase_mesh(sets: dict, single: dict, seed: int, tmp: str) -> dict:
+    """``ShardedScorer`` over [cuda:0, cuda:0] (``runner.local_devices``
+    replaced in-process): ``mesh_rows`` on the flagship and the plate,
+    ``mesh_trainer`` on the flagship, then the flagship phase's reads through
+    the CLI with the mesh engaged: the same output bytes, K1-K3 launched,
+    >= 3 windows, every window sharded, and the card's peak allocation above
+    what the run found allocated inside ``STACK_BYTES``."""
+    import torch
+
+    from tagdust_tpu_torch.engine import runner
+    from tagdust_tpu_torch.engine.cuda import CudaEngine
+    from tagdust_tpu_torch.parallel.mesh import ShardedScorer
+
+    trainer = None
+    for name in ("flagship", "plate"):
+        eng = CudaEngine(library_model(sets[name]), "cuda")
+        mesh_rows(name, eng, seed)
+        if name == "flagship":
+            trainer = mesh_trainer(eng, seed)
+        del eng
+        torch.cuda.empty_cache()
+
+    devs = [torch.device("cuda", 0)] * 2
+    sharded = [0]
+    real_devices, real_dispatch = runner.local_devices, ShardedScorer.dispatch_decided
+
+    def dispatch(self, *a):
+        sharded[0] += 1
+        return real_dispatch(self, *a)
+
+    runner.local_devices = lambda: list(devs)
+    ShardedScorer.dispatch_decided = dispatch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = os.path.join(tmp, "mesh_out")
+        res = run_path("mesh", single["args"] + ["-o", out],
+                       path_kernels("mesh", sets["flagship"]))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        runner.local_devices, ShardedScorer.dispatch_decided = real_devices, real_dispatch
+    budget = CudaEngine.STACK_BYTES
+    print(f"[mesh] the CLI over 2 shards on cuda:0: {res['wall_s']:.2f} s (one engine: "
+          f"{single['wall_s']:.2f} s), {sharded[0]} sharded windows; peak allocation "
+          f"{peak} bytes, {before} allocated when the run started, budget {budget}",
+          flush=True)
+    if sharded[0] < 3:
+        fail(f"mesh: only {sharded[0]} windows went through the shards")
+    if peak - before > budget:
+        fail(f"mesh: the card's peak allocation grew {peak - before} bytes, over "
+             f"STACK_BYTES {budget}")
+    files = same_outputs("mesh", single["out"], out)
+    print(f"[mesh] {files} output files equal the single engine's", flush=True)
+    return dict(res, sharded_windows=sharded[0], peak_bytes=peak, trainer=trainer)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1466,7 +1785,10 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run instead of all of them ("
                     + ", ".join(PHASES) + "); the last line then says so")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.child:
+        return child(json.loads(args.child))
     only = [p for p in args.only.split(",") if p]
     if set(only) - set(PHASES):
         ap.error(f"--only takes {', '.join(PHASES)}")
@@ -1525,9 +1847,13 @@ def main() -> int:
     paths = {}
     tmp = tempfile.mkdtemp(prefix="tagdust_smoke_")
     try:
-        if on("flagship") or on("sub"):
+        if on("flagship") or on("sub") or on("multihost") or on("mesh"):
+            # a fixed calibration seed (-seed; 0 seeds from the clock): the
+            # multihost and mesh phases rerun this command and must select
+            # the same threshold
             paths["flagship"] = phase_main("flagship", sets["flagship"], args.seed,
-                                           args.reads, tmp)
+                                           args.reads, tmp,
+                                           flags=("-seed", str(args.seed + 1)))
         if on("8-plex"):
             paths["8-plex"] = phase_main("8-plex", sets["8"], args.seed, SMALL_READS, tmp)
         if on("arch"):
@@ -1542,6 +1868,10 @@ def main() -> int:
             train = phase_train(sets, args.seed)
             paths["train"] = {"launches": train["em"]["launches"]}
             print(f"train times above on: {card}", flush=True)
+        if on("multihost"):
+            paths["multihost"] = phase_multihost(paths["flagship"], tmp)
+        if on("mesh"):
+            paths["mesh"] = phase_mesh(sets, paths["flagship"], args.seed, tmp)
         for r in paths.values():
             for k in launches:
                 launches[k] += r["launches"][k]

@@ -10,7 +10,13 @@ summary), with three changes:
 1. ``param.engine`` is resolved to a concrete kind first, and ``-arch``
    detection runs the port's ``detect.test_architectures``, which scores
    the candidates on that engine (K4 on the card for ``-engine cuda``);
-2. ``-multihost`` raises ``NotImplementedError`` (not ported yet);
+2. ``-multihost`` joins a ``torch.distributed`` process group (gloo,
+   ``parallel/multihost.py``) in place of ``jax.distributed``; the wiring
+   is the JAX controller's: chunk ownership and boundary skips, the
+   ``.h<pid>`` output shards and their sidecars, stats, calibration and
+   ``-arch`` detection once on host 0 and broadcast, the shard merge and
+   the global counters; each process labels its chunks on its local cards
+   (``engine/runner.py:_mesh_scorer``);
 3. the artifact filter (``-ref``) runs Myers' edit distance on the run's
    engine: the ``td_myers`` kernel on the card for ``-engine cuda``, its
    plain version on CPU tensors for ``-engine torch``, the host lanes for
@@ -86,25 +92,78 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
     nfiles = param.infiles
     # concrete engine kind before anything reads it
     param.engine = resolve_engine(param)
+    TIMINGS.update(detection=0.0, calibration=None)
+
+    # multi-host: each process owns chunks with index % nproc == pid,
+    # skip-parses the rest (io/fastq.py:skip_chunk), and writes its own
+    # output shard; stats, calibration and -arch detection run ONCE on host 0
+    # and are broadcast; counters are summed across hosts and host 0 merges
+    # the shards back into the reference's single file set at the end
+    # (parallel/multihost.py)
+    pid, nproc = 0, 1
+    final_outfile = param.outfile
     if getattr(param, "multihost", False):
-        raise NotImplementedError(
-            "-multihost is not ported to tagdust_tpu_torch yet"
+        from .parallel.multihost import init_multihost
+
+        pid, nproc = init_multihost(
+            param.coordinator, param.num_processes, param.process_id
         )
+        if nproc > 1 and param.outfile:
+            param.outfile = f"{param.outfile}.h{pid}"
+            log(
+                f"Multi-host run: process {pid}/{nproc}; "
+                f"output shard prefix {param.outfile}\n"
+            )
+            # a crashed earlier run may have left this host's sidecar behind;
+            # a stale index would corrupt the end-of-run shard merge
+            try:
+                os.remove(f"{param.outfile}.chunks.json")
+            except FileNotFoundError:
+                pass
+
+    def _once_on_host0(compute):
+        """Run `compute` on host 0 and broadcast the result; other hosts
+        receive it (or a host-0 failure, surfaced as SystemExit)."""
+        if nproc == 1:
+            return compute()
+        from .parallel.multihost import broadcast_obj
+
+        if pid == 0:
+            exc = None
+            try:
+                payload = ("ok", compute())
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                exc = e
+                payload = ("err", f"{type(e).__name__}: {e}")
+            out = broadcast_obj(payload, True)
+            if exc is not None:
+                raise exc
+            return out[1]
+        status, data = broadcast_obj(None, False)
+        if status == "err":
+            log(f"host 0 failed: {data}\n")
+            log.flush(param.outfile)
+            raise SystemExit(1)
+        return data
 
     cli_rs = read_structure_from_params(param.segments)
-    read_structures: List[ReadStructure] = []
-    TIMINGS["detection"] = 0.0
-    for i in range(nfiles):
-        if i == 0 and cli_rs.num_segments:
-            rs = cli_rs
-        elif param.arch_file:
-            t_det = time.perf_counter()
-            rs = test_architectures(param, i, log=log)
-            TIMINGS["detection"] += time.perf_counter() - t_det
-        else:
-            rs = build_read_structure(["R:N"])
-            qc_read_structure(rs)
-        read_structures.append(rs)
+
+    def _resolve_read_structures() -> List[ReadStructure]:
+        out: List[ReadStructure] = []
+        for i in range(nfiles):
+            if i == 0 and cli_rs.num_segments:
+                rs = cli_rs
+            elif param.arch_file:
+                t_det = time.perf_counter()
+                rs = test_architectures(param, i, log=log)
+                TIMINGS["detection"] += time.perf_counter() - t_det
+            else:
+                rs = build_read_structure(["R:N"])
+                qc_read_structure(rs)
+            out.append(rs)
+        return out
+
+    read_structures = _once_on_host0(_resolve_read_structures)
 
     barcode_present = 0
     read_present = [0] * nfiles
@@ -123,8 +182,10 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
     num_out_reads = sum(read_present)
     for i in range(nfiles):
         if barcode_present & (1 << i):
+            # refuse on the FINAL (merged) names: that's the file set the
+            # user receives (shards are transient under -multihost)
             found = existing_output_files(
-                param.outfile, read_structures[i], num_out_reads, param.multiread
+                final_outfile, read_structures[i], num_out_reads, param.multiread
             )
             if found:
                 log.flush(param.outfile)
@@ -145,29 +206,33 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
     elif env_chunk:
         read_chunk = first_chunk = int(env_chunk)
 
-    t_cal = time.perf_counter()
-    stats = [
-        get_sequence_stats(
-            param.infile[i], read_structures[i], param.num_query,
-            param.matchstart, param.matchend, sam_filter=param.filter,
-        )
-        for i in range(nfiles)
-    ]
-    thresholds = [0.0] * nfiles
-    if not param.confidence_threshold:
-        # calibrate on the engine production will score with
-        def _get_prob(mb, seq_list):
-            return run_get_prob(mb, seq_list, engine_kind=param.engine)
-
-        for i in range(nfiles):
-            log(f"Determining threshold for read{i}.\n")
-            thresholds[i] = estimate_q_threshold(
-                param, read_structures[i], stats[i], _get_prob
+    def _compute_stats_thresholds():
+        t_cal = time.perf_counter()
+        stats = [
+            get_sequence_stats(
+                param.infile[i], read_structures[i], param.num_query,
+                param.matchstart, param.matchend, sam_filter=param.filter,
             )
-            log(f"Selected Threshold:: {thresholds[i]:f}\n")
-    # NOTE: with -Q given the reference leaves confidence_thresholds[] at 0.0
-    # and uses those per-file values (barcode_hmm.c:102, :314).
-    TIMINGS["calibration"] = time.perf_counter() - t_cal
+            for i in range(nfiles)
+        ]
+        thresholds = [0.0] * nfiles
+        if not param.confidence_threshold:
+            # calibrate on the engine production will score with
+            def _get_prob(mb, seq_list):
+                return run_get_prob(mb, seq_list, engine_kind=param.engine)
+
+            for i in range(nfiles):
+                log(f"Determining threshold for read{i}.\n")
+                thresholds[i] = estimate_q_threshold(
+                    param, read_structures[i], stats[i], _get_prob
+                )
+                log(f"Selected Threshold:: {thresholds[i]:f}\n")
+        # NOTE: with -Q given the reference leaves confidence_thresholds[] at
+        # 0.0 and uses those per-file values (barcode_hmm.c:102, :314).
+        TIMINGS["calibration"] = time.perf_counter() - t_cal
+        return stats, thresholds
+
+    stats, thresholds = _once_on_host0(_compute_stats_thresholds)
 
     model_bags = [
         init_model_bag(
@@ -215,12 +280,30 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
     writer_err: List[BaseException] = []
 
     def _reader_loop() -> None:
+        # multi-host input sharding: a chunk with index % nproc != pid is
+        # owned by another host, and only record-boundary scanning is paid
+        # for it (SeqReader.skip_chunk).  With several input files every host
+        # parses the HEAD of chunk 0 (the <= 1000 records the read-name
+        # pairing check compares) and boundary-skips the rest, so the check
+        # fails symmetrically on all hosts.  The chunk schedule is a pure
+        # function of cidx, identical on every host.
         try:
             cidx = 0
             while not stop.is_set():
                 clen = first_chunk if cidx == 0 else read_chunk
-                chunks = [readers[i].read_chunk_batch(clen) for i in range(nfiles)]
-                counts = [c.B for c in chunks]
+                if nproc == 1 or cidx % nproc == pid:
+                    chunks = [readers[i].read_chunk_batch(clen) for i in range(nfiles)]
+                    counts = [c.B for c in chunks]
+                elif cidx == 0 and nfiles > 1:
+                    head = min(1000, clen)
+                    chunks = [readers[i].read_chunk_batch(head) for i in range(nfiles)]
+                    counts = [
+                        c.B + (readers[i].skip_chunk(clen - head) if clen > head else 0)
+                        for i, c in enumerate(chunks)
+                    ]
+                else:
+                    chunks = None
+                    counts = [readers[i].skip_chunk(clen) for i in range(nfiles)]
                 chunk_q.put((cidx, chunks, counts))
                 if sum(counts) == 0:
                     return
@@ -238,8 +321,12 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
             if writer_err:
                 continue
             try:
-                chunks_, numseq_ = item
+                chunks_, numseq_, cidx_ = item
                 writer.write_batch_columnar(chunks_, numseq_)
+                if writer.track_chunks:
+                    # the GLOBAL-chunk-indexed byte ranges the shard merge
+                    # interleaves back (multihost.py:merge_output_shards)
+                    writer.mark_chunk(cidx_)
             except BaseException as e:  # noqa: BLE001
                 writer_err.append(e)
 
@@ -267,9 +354,12 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
         if isinstance(item, BaseException):
             _shutdown_pipeline()
             raise item
-        _, chunks, numseqs = item
+        chunk_idx, chunks, numseqs = item
         if sum(numseqs) == 0:
             break
+        # the cross-file record-count check runs on every chunk on every
+        # host (skip_chunk returns per-file counts), so a mismatch aborts all
+        # hosts symmetrically and leaves no collective waiting
         for i in range(nfiles - 1):
             for j in range(i + 1, nfiles):
                 if numseqs[i] != numseqs[j]:
@@ -280,7 +370,7 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
                     log.flush(param.outfile)
                     _shutdown_pipeline()
                     raise SystemExit(1)
-        if first_batch:
+        if first_batch and chunks is not None:
             for i in range(nfiles - 1):
                 for j in range(i + 1, nfiles):
                     for c in range(min(1000, numseqs[0])):
@@ -292,6 +382,10 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
                             log.flush(param.outfile)
                             _shutdown_pipeline()
                             raise SystemExit(1)
+
+        if chunks is None or chunk_idx % nproc != pid:
+            first_batch = False
+            continue  # another host owns this chunk (consistency checks ran)
 
         for i in range(nfiles):
             mx = int(chunks[i].lens.max(initial=0))
@@ -322,7 +416,8 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
 
         if writer is None:
             writer = DemuxWriter(
-                param.outfile, writer_rs, read_present, param.print_seq_finger
+                param.outfile, writer_rs, read_present, param.print_seq_finger,
+                track_chunks=nproc > 1,
             )
             writer_thread = threading.Thread(
                 target=_writer_loop, name="tagdust-writer", daemon=True
@@ -331,7 +426,7 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
         if writer_err:
             _shutdown_pipeline()
             raise writer_err[0]
-        write_q.put((chunks, numseqs[0]))
+        write_q.put((chunks, numseqs[0], chunk_idx))
         first_batch = False
 
         counters["total"] += numseqs[0]
@@ -374,6 +469,31 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
         for r in readers:
             r.close()
 
+    if nproc > 1:
+        import json
+
+        from .parallel.multihost import global_counter_sum, merge_output_shards
+
+        if os.environ.get("TAGDUST_TPU_IO_STATS"):
+            with open(f"{param.outfile}.iostats.json", "w") as fh:
+                json.dump(
+                    {
+                        "parsed": sum(r.records_parsed for r in readers),
+                        "skipped": sum(r.records_skipped for r in readers),
+                    },
+                    fh,
+                )
+        # every host enters the merge (it holds a cross-host barrier); host 0
+        # interleaves the shards back into the reference's single file set
+        if writer is not None:
+            writer.write_sidecar(f"{param.outfile}.chunks.json")
+        merge_output_shards(final_outfile, pid, nproc)
+        # every host's logfile reports the GLOBAL outcome totals
+        counters = global_counter_sum(counters)
+        if mer_hash:
+            mh = global_counter_sum({str(i): v for i, v in enumerate(mer_hash)})
+            mer_hash = [mh[str(i)] for i in range(len(mer_hash))]
+
     log("Done.\n\n")
     for i in range(nfiles):
         log(f"{param.infile[i]}\tInput file {i}.\n")
@@ -393,4 +513,6 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
         for i, n in enumerate(contaminant_names):
             if mer_hash[i]:
                 log(f"{mer_hash[i]}\t{n}\n")
-    log.flush(param.outfile)
+    # host 0 writes the reference-named <out>_logfile.txt (its counters are
+    # the global totals); other hosts keep their shard-named logfiles
+    log.flush(final_outfile if pid == 0 else param.outfile)

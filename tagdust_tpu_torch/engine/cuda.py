@@ -29,6 +29,7 @@ plain versions on CUDA tensors.
 
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -43,6 +44,14 @@ from . import scan
 from .fused_kernel import FusedScorer, path_pitch
 from .lattice import compile_lattice
 from .tables import grouped_tables_from_lattice, tables_from_lattice
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """``d`` with its index: ``cuda`` is the current card."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
 
 def grouped_step_mode(mb: ModelBag, lat):
     """The grouped tables of ``mb`` when TAGDUST_TPU_GROUPED=1 asks for the
@@ -116,6 +125,24 @@ class CudaEngine:
             k: t(T[k]) for k in ("is_R", "is_B", "is_F", "null_b", "alt", "seg")
         }
         self._dec_tables["is_r_full"] = t(self._is_r_label())
+
+    def on(self, device) -> "CudaEngine":
+        """This compiled model on ``device``, without a second
+        ``compile_lattice``: the lattice and tables shared, the scorer's
+        buffers and the epilogue's tables moved.  One engine per distinct
+        device, kept by the engine it was placed from; ``self`` on its own
+        device."""
+        device = _indexed(torch.device(device))
+        placed = self.__dict__.setdefault("_placed", {_indexed(self.device): self})
+        if device not in placed:
+            eng = copy.copy(self)
+            eng.device = device
+            eng.scorer = self.scorer.placed(device)
+            eng._bg_log = self._bg_log.to(device)
+            eng._avg_len = self._avg_len.to(device)
+            eng._dec_tables = {k: v.to(device) for k, v in self._dec_tables.items()}
+            placed[device] = eng
+        return placed[device]
 
     # ---------------- host helpers (tpu.py) ----------------
     def default_batch_tile(self) -> int:

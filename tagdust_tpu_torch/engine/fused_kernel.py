@@ -26,6 +26,8 @@ went through the kernels.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -42,8 +44,13 @@ _GROUPED = ("span", "tile_f", "tile_b", "span_of", "uexit", "wvec", "seg",
             "urows", "uent", "eent")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(dev: torch.device) -> int:
+    """The current stream of ``dev``.  Every launch runs under
+    ``torch.cuda.device(dev)``: the C entry points read the current device
+    (``cudaGetDevice``) for its attributes and launch on it, so a shard on
+    another card launches there and never on device 0 with pointers into
+    its memory."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _buffer(module: nn.Module, name: str, x) -> None:
@@ -104,6 +111,14 @@ class FusedScorer(nn.Module):
         self._rt_base = {}
         self._stage = {}
         self._threads = {}
+
+    def placed(self, device) -> "FusedScorer":
+        """This scorer with its tables on ``device``: the buffers copied
+        there, the host state (the blobs' word offsets, the launch geometry
+        found for this card model) shared."""
+        out = copy.copy(self)
+        out._buffers = {k: v.to(device) for k, v in self._buffers.items()}
+        return out
 
     def grouped_tables(self) -> dict:
         """The grouped tables as tensors (the plain versions' argument)."""
@@ -221,11 +236,13 @@ class FusedScorer(nn.Module):
         blstack = torch.empty((Lp + 1, B), dtype=torch.float32, device=dev)
         logpb = torch.empty(B, dtype=torch.float32, device=dev)
         m, *g = self._step_args("bwd")
-        err = lib().td_bwd(
-            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
-            bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
-            B, Lp, self.S, self.Sr, self.begin, *self._geometry("bwd"), _stream(),
-        )
+        with torch.cuda.device(dev):
+            err = lib().td_bwd(
+                seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
+                bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
+                B, Lp, self.S, self.Sr, self.begin, *self._geometry("bwd"),
+                _stream(dev),
+            )
         check(err, "td_bwd")
         LAUNCHES[self._key("bwd")] += 1
         return bstack, blstack, logpb
@@ -242,11 +259,12 @@ class FusedScorer(nn.Module):
         B, Lp = seqs.shape
         logpb = torch.empty(B, dtype=torch.float32, device=seqs.device)
         m, *g = self._step_args("bwd")
-        err = lib().td_bwd_score(
-            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
-            logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin,
-            *self._geometry("bwd"), _stream(),
-        )
+        with torch.cuda.device(seqs.device):
+            err = lib().td_bwd_score(
+                seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
+                logpb.data_ptr(), B, Lp, self.S, self.Sr, self.begin,
+                *self._geometry("bwd"), _stream(seqs.device),
+            )
         check(err, "td_bwd_score")
         LAUNCHES[self._key("score")] += 1
         return logpb
@@ -284,14 +302,15 @@ class FusedScorer(nn.Module):
         m, *g = self._step_args("fwd")
         entry = ([self.g_urows.data_ptr(), self.g_uent.data_ptr(),
                   self.g_eent.data_ptr()] if self.grouped else [None] * 3)
-        nm, grouped, staged, rt = self._geometry("fwd")
-        err = lib().td_fwd(
-            seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g, *entry,
-            bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
-            path.data_ptr(), dpfin.data_ptr(), flog.data_ptr(), tp.data_ptr(),
-            B, pitch, Lp, self.S, self.Sr, self.K, self.H, self.begin, nm,
-            self.NU, grouped, staged, path.element_size(), rt, _stream(),
-        )
+        with torch.cuda.device(dev):
+            nm, grouped, staged, rt = self._geometry("fwd")
+            err = lib().td_fwd(
+                seqs.data_ptr(), lens.data_ptr(), m, self.end.data_ptr(), *g,
+                *entry, bstack.data_ptr(), blstack.data_ptr(), logpb.data_ptr(),
+                path.data_ptr(), dpfin.data_ptr(), flog.data_ptr(), tp.data_ptr(),
+                B, pitch, Lp, self.S, self.Sr, self.K, self.H, self.begin, nm,
+                self.NU, grouped, staged, path.element_size(), rt, _stream(dev),
+            )
         check(err, "td_fwd")
         LAUNCHES[self._key("fwd")] += 1
         return path, dpfin, flog, tp
@@ -314,10 +333,11 @@ class FusedScorer(nn.Module):
             raise TypeError(f"path {path.dtype} / dpfin {dpfin.dtype}")
         labels = torch.empty((B, Lp + 1), dtype=torch.int32, device=path.device)
         path, pitch = _pitched(path)
-        err = lib().td_tb(
-            path.data_ptr(), dpfin.data_ptr(), labels.data_ptr(), B, pitch, Lp, H,
-            path.element_size(), _stream(),
-        )
+        with torch.cuda.device(path.device):
+            err = lib().td_tb(
+                path.data_ptr(), dpfin.data_ptr(), labels.data_ptr(), B, pitch, Lp,
+                H, path.element_size(), _stream(path.device),
+            )
         check(err, "td_tb")
         LAUNCHES["tb"] += 1
         return labels

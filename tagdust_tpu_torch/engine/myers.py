@@ -116,9 +116,10 @@ def bpm_batch_cuda(text: torch.Tensor, offs: torch.Tensor, B4: torch.Tensor,
     if C < 1 or C * n_orient > MAX_JOBS or B < 1:
         raise ValueError(f"{C} texts x {n_orient} orientations over {B} reads")
     k = torch.empty((C, n_orient, B), dtype=torch.int32, device=B4.device)
-    err = lib().td_myers(text.data_ptr() if text.numel() else None,
-                         offs.data_ptr(), C, B4.data_ptr(), n_orient,
-                         m.data_ptr(), k.data_ptr(), B, _stream())
+    with torch.cuda.device(B4.device):
+        err = lib().td_myers(text.data_ptr() if text.numel() else None,
+                             offs.data_ptr(), C, B4.data_ptr(), n_orient,
+                             m.data_ptr(), k.data_ptr(), B, _stream(B4.device))
     check(err, "td_myers")
     LAUNCHES["myers"] += 1
     return k

@@ -29,6 +29,8 @@ from ..constants import EXTRACT_FAIL_LOW_COMPLEXITY, EXTRACT_SUCCESS
 from ..extract import compute_q
 from ..io.fastq import Read
 from ..model import ModelBag
+from ..parallel.mesh import local_devices
+from .cuda import BatchResult
 from .decided import collect_decided
 from .exact import ExactEngine
 
@@ -86,6 +88,49 @@ def get_engine(mb: ModelBag, kind: str):
         else:
             _ENGINE_CACHE[key] = ExactEngine(mb)
     return _ENGINE_CACHE[key]
+
+
+def _mesh_scorer(eng, B: int, Lp: int, budget: int = None, packed: bool = False):
+    """The cached ``ShardedScorer`` of ``eng`` over this process's devices of
+    the engine's type (``local_devices``), or None: with fewer than two,
+    when B reads do not give every shard a batch tile, when a shard of one
+    tile would not fit its share of ``budget`` (default ``STACK_BYTES``) at
+    Lp, or under TAGDUST_TPU_MESH=0 (the counterpart of JAX
+    ``runner.py:_mesh_scorer``).  With one card nothing changes."""
+    if os.environ.get("TAGDUST_TPU_MESH", "1") == "0":
+        return None
+    devs = [d for d in local_devices() if d.type == eng.device.type]
+    BT = eng.default_batch_tile()
+    if len(devs) < 2 or B < len(devs) * BT:
+        return None
+    cache = eng.__dict__.setdefault("_mesh_scorers", {})
+    key = tuple(devs)
+    if key not in cache:
+        from ..parallel.mesh import ShardedScorer
+
+        cache[key] = ShardedScorer(eng, devs)
+    scorer = cache[key]
+    if scorer.shard_reads(Lp, budget or eng.STACK_BYTES, packed) < BT:
+        return None
+    return scorer
+
+
+def _run_sharded(scorer, seqs: np.ndarray, lens: np.ndarray, want_labels: bool):
+    """One padded batch over the shards, in sub-batches whose shards stay
+    inside their share of their card's ``STACK_BYTES`` (JAX
+    ``runner.py:_run_sharded``: the budget times the cards)."""
+    eng = scorer.engine
+    B, Lp = seqs.shape
+    BT = eng.default_batch_tile()
+    step = scorer.shard_reads(Lp, eng.STACK_BYTES) // BT * BT * scorer.n
+    parts = [scorer.run(seqs[s : s + step], lens[s : s + step],
+                        want_labels=want_labels)[0]
+             for s in range(0, B, step)]
+    cat = lambda f: (  # noqa: E731
+        None if getattr(parts[0], f) is None
+        else np.concatenate([getattr(p, f) for p in parts]))
+    return BatchResult(cat("f_score"), cat("r_score"), cat("bar_prob"),
+                       cat("labels"), cat("mapq"))
 
 
 def _pad_tpu_batch(seqs: np.ndarray, lens_arr: np.ndarray):
@@ -198,7 +243,9 @@ def run_get_prob(mb: ModelBag, seq_list, engine_kind: str = "exact") -> np.ndarr
             s = seq_list[int(i)]
             sq[bi, : s.shape[0]] = s
         pseqs, plens = _pad_tpu_batch(sq, lens[idxs])
-        res = eng.run_batch_fused(pseqs, plens, want_labels=False)
+        scorer = _mesh_scorer(eng, *pseqs.shape)
+        res = (_run_sharded(scorer, pseqs, plens, want_labels=False) if scorer
+               else eng.run_batch_fused(pseqs, plens, want_labels=False))
         mapq[idxs] = res.mapq[: idxs.size]
     return mapq
 
@@ -277,7 +324,10 @@ def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
         seqs = padded_matrix(batch.seq_arena, batch.seq_off, full_lens, Lmax, 0)
         lens = full_lens.astype(np.int32)
     seqs, lens = _pad_tpu_batch(seqs, lens)
-    res = get_engine(mb, kind).run_batch_fused(seqs, lens, want_labels=True)
+    eng = get_engine(mb, kind)
+    scorer = _mesh_scorer(eng, *seqs.shape)
+    res = (_run_sharded(scorer, seqs, lens, want_labels=True) if scorer
+           else eng.run_batch_fused(seqs, lens, want_labels=True))
     batch.mapq[:] = res.mapq[:B].astype(np.float64)
     return res.labels[:B]
 
@@ -291,7 +341,14 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     decides, stream through the label-carrying rows (``dispatch_packed``)
     and extract each window with ``extract_batch_columnar``.  Returns False
     when the chunk fits one window, or a window of the batch granularity
-    would not fit the stack budget (the caller labels it one-shot)."""
+    would not fit the stack budget (the caller labels it one-shot).
+
+    With several local devices (``_mesh_scorer``) the same loop drives
+    them all: a window is n shards of whole tiles, each dispatched on its
+    card (``ShardedScorer``), and fetched into slices of one pinned buffer
+    with one event per shard; the granularity and the cap scale by n, and
+    each shard stays inside its share of its card's budget (JAX
+    ``runner.py:558-575``)."""
     from ..extract import apply_device_decisions, extract_batch_columnar
     from ..io.batch import padded_matrix
 
@@ -306,15 +363,21 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     Lpad = max((int(Lmax) + 31) // 32 * 32, 32)
     DEPTH = max(int(os.environ.get("TAGDUST_TPU_PIPELINE_DEPTH", "3")), 1)
     BT = eng.default_batch_tile()
-    # DEPTH windows in flight share the budget; where a window of BT reads
-    # would not fit, the one-shot path sub-batches the chunk instead
-    fit = eng.reads_within(Lpad, eng.STACK_BYTES // DEPTH, not decided) // BT * BT
+    budget = eng.STACK_BYTES // DEPTH
+    scorer = _mesh_scorer(eng, B, Lpad, budget, not decided)  # None on one card
+    n = scorer.n if scorer is not None else 1
+    gran = BT * n  # every shard gets whole tiles
+    # DEPTH windows in flight share each card's budget, and so do the shards
+    # on one card; where a shard of BT reads would not fit, the one-shot path
+    # sub-batches the chunk instead
+    fit = (scorer.shard_reads(Lpad, budget, not decided) if scorer is not None
+           else eng.reads_within(Lpad, budget, not decided)) // BT * BT
     if fit < BT:
         return False
-    W = min(fit, 16384)
+    W = min(fit, 16384) * n
     wenv = os.environ.get("TAGDUST_TPU_WINDOW")
     if wenv:
-        W = min(max(int(wenv) // BT * BT, BT), fit)
+        W = min(max(int(wenv) // gran * gran, gran), fit * n)
     if B <= W:
         return False
 
@@ -337,19 +400,26 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
                 batch.seq_arena, batch.seq_off[s : e + 1], full_lens[s:e], Lpad, 0
             )
             lens_w = full_lens[s:e].astype(np.int32)
-        return eng._pad(seqs, lens_w, BT)
+        return eng._pad(seqs, lens_w, gran)
 
     def _fetch(rows):
+        # rows: one tensor, or the shards' rows in shard order
+        parts = rows if isinstance(rows, list) else [rows]
         if not on_card:
-            return rows, None
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
+            return (parts[0] if len(parts) == 1 else torch.cat(parts)), []
+        host = torch.empty((sum(p.shape[0] for p in parts),) + parts[0].shape[1:],
+                           dtype=parts[0].dtype, pin_memory=True)
+        evs, a = [], 0
+        for p in parts:
+            host[a : a + p.shape[0]].copy_(p, non_blocking=True)
+            a += p.shape[0]
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(p.device))
+            evs.append(ev)
+        return host, evs
 
-    def _extract(s, e, host, ev):
-        if ev is not None:
+    def _extract(s, e, host, evs):
+        for ev in evs:
             ev.synchronize()
         consumed[0] += 1
         win = batch.slice(s, e)
@@ -383,8 +453,9 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
         for s in range(0, B, W):
             e = min(s + W, B)
             seqs, lens_w = _window(s, e)
-            rows = (eng.dispatch_decided(seqs, lens_w, thr32, minlen) if decided
-                    else eng.dispatch_packed(seqs, lens_w))
+            src = scorer if scorer is not None else eng
+            rows = (src.dispatch_decided(seqs, lens_w, thr32, minlen) if decided
+                    else src.dispatch_packed(seqs, lens_w))
             inflight.append((s, e, rows))
             if len(inflight) >= DEPTH:
                 _stage()

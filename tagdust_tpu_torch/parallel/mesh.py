@@ -1,9 +1,22 @@
-"""Baum-Welch training (the reference's MODE_TRAIN) over local shards.
+"""Data-parallel scoring over this process's cards, and Baum-Welch training
+(the reference's MODE_TRAIN) over shards, cards and processes.
 
-The counterpart of ``tagdust_tpu/parallel/mesh.py:_expected_lattice_counts``
-and ``DistributedTrainer`` (per-thread count merge
-``copy_estimated_parameter``, barcode_hmm.c:5694-5744, reduced at
-:1977-1992):
+The counterpart of ``tagdust_tpu/parallel/mesh.py``: ``ShardedScorer``, the
+E-step ``_expected_lattice_counts`` and ``DistributedTrainer`` (per-thread
+count merge ``copy_estimated_parameter``, barcode_hmm.c:5694-5744, reduced
+at :1977-1992):
+
+* ``local_devices`` is this process's CUDA devices and nothing else: the
+  JAX mesh takes the global ``jax.devices()`` (its ``make_mesh``), which
+  under ``-multihost`` names other hosts' chips; the port does not copy
+  that;
+* ``ShardedScorer`` cuts a window into contiguous shards of whole batch
+  tiles, one per entry of its devices (a card may repeat), and dispatches
+  each on its card (``CudaEngine.on``: the compiled model placed there)
+  from one thread: the launches are asynchronous, so the cards overlap.
+  The same per-read kernels run on every shard, so its rows are the
+  one-engine rows.  Two shards on one card share that card's
+  ``STACK_BYTES`` (``per_card``; the runner divides the budget by it);
 
 * ``_expected_lattice_counts`` is the E-step in lattice state space.  It
   reads K1's stack (``FusedScorer.backward``: ``td_bwd`` on the card, its
@@ -15,9 +28,12 @@ and ``DistributedTrainer`` (per-thread count merge
   the entries' (src, dst) and summed over reads.  Nothing is multiplied
   over the one-hot expansion of the carry or over A[c]'s zeros;
 * ``DistributedTrainer`` cuts a batch into contiguous shards, one per
-  entry of ``devices`` (every entry the engine's device: shards across
-  cards come with several GPUs), and sums the shards' counts in shard
-  order: ``psum``'s counterpart over local shards.  Each shard is cut
+  entry of ``devices`` (any of this process's cards, or the CPU for an
+  engine built there), and sums the shards' counts in shard order on the
+  first shard's device: ``psum``'s counterpart.  Under a
+  ``torch.distributed`` group of several processes every process passes
+  the same batch, process p takes the p-th contiguous block of shards,
+  and the sums are ``all_reduce``d on the host (gloo).  Each shard is cut
   into sub-batches whose buffers, its reads included, stay inside
   ``CudaEngine.STACK_BYTES`` (``estep_bytes``): a sub-batch's reads go up
   to the card only when it runs.
@@ -29,16 +45,95 @@ in the JAX package.  Every product runs in full float32 (TF32 off).
 from __future__ import annotations
 
 import time
+from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..engine import scan
+from ..engine.cuda import BatchResult, _indexed
 
 # seconds spent since the last reset by DistributedTrainer calls: K1 (the
 # backward recurrence and its stack), the E-step (the forward recurrence
 # and the counts) and the host mapping of expected_segment_counts
 TIMINGS = {"backward_s": 0.0, "estep_s": 0.0, "map_s": 0.0}
+
+
+def local_devices() -> list:
+    """This process's CUDA devices, none without a card."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class ShardedScorer:
+    """The engine's scorer over ``devices`` (the counterpart of the JAX
+    ``ShardedScorer``, shard_map over a ``reads`` mesh axis): a window of
+    B reads, B a multiple of ``n`` batch tiles, is cut into ``n`` contiguous
+    shards, shard i scored on ``devices[i]`` by the engine placed there, and
+    the rows come back in shard order, so they are the window's rows."""
+
+    def __init__(self, engine, devices):
+        self.devices = [_indexed(torch.device(d)) for d in devices]
+        if not self.devices:
+            raise ValueError("a ShardedScorer needs at least one device")
+        for d in self.devices:
+            if d.type != engine.device.type:
+                raise ValueError(f"a shard on {d}, the engine on {engine.device}")
+        self.engine = engine
+        self.n = len(self.devices)
+        self.engines = [engine.on(d) for d in self.devices]
+        # the most shards on one card: each gets that card's budget / per_card
+        self.per_card = max(Counter(self.devices).values())
+
+    def shard_reads(self, Lp: int, budget: int, packed: bool = False) -> int:
+        """The most reads of a shard whose launch, beside the other shards
+        on its card, stays inside ``budget`` bytes of that card."""
+        return self.engine.reads_within(Lp, budget // self.per_card, packed)
+
+    def _shards(self, B: int):
+        tile = self.engine.default_batch_tile()
+        if B % (self.n * tile):
+            raise ValueError(
+                f"window {B} not a multiple of {self.n} shards x tile {tile}")
+        per = B // self.n
+        return [(eng, slice(i * per, (i + 1) * per))
+                for i, eng in enumerate(self.engines)]
+
+    def dispatch_decided(self, seqs: np.ndarray, lens: np.ndarray, thr32,
+                         minlen: int) -> list:
+        """``CudaEngine.dispatch_decided`` on every shard: the shards' rows
+        on their devices, in shard order, without waiting."""
+        return [eng.dispatch_decided(seqs[p], lens[p], thr32, minlen)
+                for eng, p in self._shards(seqs.shape[0])]
+
+    def dispatch_packed(self, seqs: np.ndarray, lens: np.ndarray) -> list:
+        """``CudaEngine.dispatch_packed`` on every shard, in shard order."""
+        return [eng.dispatch_packed(seqs[p], lens[p])
+                for eng, p in self._shards(seqs.shape[0])]
+
+    def run(self, seqs: np.ndarray, lens: np.ndarray, threshold: float = 0.0,
+            want_labels: bool = True):
+        """One-shot scoring: (``BatchResult`` of the ``len(seqs)`` reads,
+        [accepted, rejected] int64: the reads with Q >= ``threshold`` and
+        with Q < it, pads masked).  Pads the batch to ``n`` tiles with
+        copies of read 0; every shard is enqueued before any is fetched."""
+        B = seqs.shape[0]
+        gran = self.n * self.engine.default_batch_tile()
+        seqs, lens = self.engine._pad(seqs, lens, gran)
+        outs = [eng._full(eng._upload(seqs[p].astype(np.uint8)),
+                          eng._upload(lens[p].astype(np.int32)))
+                for eng, p in self._shards(seqs.shape[0])]
+        fields = [
+            None if i == 3 and not want_labels
+            else torch.cat([o[i].cpu() for o in outs]).numpy()[:B]
+            for i in range(5)
+        ]
+        q = fields[4]
+        counts = np.array([(q >= threshold).sum(), (q < threshold).sum()],
+                          dtype=np.int64)
+        return BatchResult(*fields), counts
 
 
 class Kahan:
@@ -199,57 +294,77 @@ def _expected_lattice_counts(engine, seqs: torch.Tensor, lens: torch.Tensor,
     return _dense(tab, ct.sum), e.sum, n
 
 
-def _same(d: torch.device, e: torch.device) -> bool:
-    return d.type == e.type and (d.index is None or e.index is None or d.index == e.index)
-
-
 class DistributedTrainer:
-    """MODE_TRAIN over local shards: per-shard Baum-Welch expected counts in
+    """MODE_TRAIN over shards: per-shard Baum-Welch expected counts in
     lattice space, summed in shard order.
 
-    ``devices`` (default ``[engine.device]``) names one device per shard;
-    every one must be the engine's, so an engine built for the card trains
-    on the card and nowhere else (no fallback to the CPU), and one built
-    for ``"cpu"`` trains on the CPU through the plain K1.  Shards run in
-    turn."""
+    ``devices`` (default ``[engine.device]``) names one device per shard, of
+    the engine's type: an engine built for the card trains on this
+    process's cards and nowhere else (no fallback to the CPU), one built
+    for ``"cpu"`` on the CPU through the plain K1.  Each shard's card gets
+    the engine placed there (``CudaEngine.on``) and its ``count_tables``.
+    Shards run in turn, from one thread."""
 
     def __init__(self, engine, devices=None):
         devices = [torch.device(d) for d in (devices or [engine.device])]
         for d in devices:
-            if not _same(d, engine.device):
+            if d.type != engine.device.type:
                 raise ValueError(f"a shard on {d}, the engine on {engine.device}")
         if engine.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: an engine built for the card "
                                "trains on the card")
         self.engine = engine
         self.shards = len(devices)
-        self.tables = count_tables(engine.lat, engine.device)
+        self.engines = [engine.on(d) for d in devices]
+        self.tables = {}
+        for e in self.engines:
+            if e.device not in self.tables:
+                self.tables[e.device] = count_tables(engine.lat, e.device)
 
     def run(self, seqs: np.ndarray, lens: np.ndarray):
         """-> (CT [5, S, S] f32, E [5, S] f32, total) as numpy: the counts of
         ``seqs`` [B, Lp] / ``lens`` [B], padded to a multiple of the shard
         count with zero-length reads and cut into contiguous shards.  The
-        reads stay on the host until their sub-batch runs."""
-        n = self.shards
+        reads stay on the host until their sub-batch runs.  In a process
+        group of P processes, each passing the same batch, the batch is cut
+        into P blocks of this trainer's shards, process p counts block p, and
+        every process returns the sums over all of them."""
+        from .multihost import rank_and_world
+
+        rank, world = rank_and_world()
+        n = self.shards * world
         pad = (-seqs.shape[0]) % n
         if pad:
             seqs = np.concatenate([seqs, np.zeros((pad, seqs.shape[1]), seqs.dtype)])
             lens = np.concatenate([lens, np.zeros(pad, lens.dtype)])
         per = seqs.shape[0] // n
-        dev = self.engine.device
+        dev = self.engines[0].device
         CT = E = None
         total = 0
-        for i in range(n):
-            part = slice(i * per, (i + 1) * per)
+        for i, eng in enumerate(self.engines):
+            k = rank * self.shards + i
+            part = slice(k * per, (k + 1) * per)
             s = torch.from_numpy(np.ascontiguousarray(seqs[part], np.uint8))
             ln = torch.from_numpy(np.ascontiguousarray(lens[part], np.int32))
-            ct, e, m = _expected_lattice_counts(self.engine, s, ln, tables=self.tables)
+            ct, e, m = _expected_lattice_counts(eng, s, ln,
+                                                tables=self.tables[eng.device])
             if CT is None:
                 CT, E = Kahan(ct.shape, dev), Kahan(e.shape, dev)
-            CT.add(ct)
-            E.add(e)
+            CT.add(ct.to(dev))
+            E.add(e.to(dev))
             total += int(m)
-        return CT.sum.cpu().numpy(), E.sum.cpu().numpy(), total
+        CT, E = CT.sum.cpu(), E.sum.cpu()
+        if world > 1:
+            # the blocks' sums, added on the host: float64 keeps the f32
+            # partials exact, int64 the bases
+            flat = torch.cat([CT.double().flatten(), E.double().flatten()])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            CT = flat[: CT.numel()].reshape(CT.shape).float()
+            E = flat[CT.numel():].reshape(E.shape).float()
+            t = torch.tensor([total], dtype=torch.int64)
+            dist.all_reduce(t, op=dist.ReduceOp.SUM)
+            total = int(t[0])
+        return CT.numpy(), E.numpy(), total
 
     def expected_segment_counts(self, seqs: np.ndarray, lens: np.ndarray):
         """The whole MODE_TRAIN E-step: the counts of ``run``, mapped back to

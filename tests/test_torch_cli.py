@@ -167,14 +167,3 @@ def test_profile_writes_a_torch_trace(tmp_path):
     assert (prof / "trace.json").stat().st_size > 0
     assert (tmp_path / "o_un.fq").exists()
 
-
-def test_multihost_is_not_ported(tmp_path):
-    from tagdust_tpu_torch.config import parse_args
-    from tagdust_tpu_torch.controller import hmm_controller_multiple
-
-    fq = str(tmp_path / "in.fq")
-    write_fastq(fq, 10, seed=1)
-    p = parse_args([*ARCHS["barcode"], fq, "-o", str(tmp_path / "o"),
-                    "-engine", "torch", "-multihost"])
-    with pytest.raises(NotImplementedError):
-        hmm_controller_multiple(p)
