@@ -65,9 +65,12 @@ Phases, each fatal on failure (no phase catches its own error):
       -end 46`` (the barcode and 40nt of the read) at ``-Q 20``, and its
       20,000-read cross-check against ``-engine exact``;
    f. training (``train``): the Baum-Welch E-step
-      (``parallel/mesh.py:_expected_lattice_counts``, torch ops reading
+      (``parallel/mesh.py:_expected_lattice_counts``: ``td_estep`` reading
       K1's stack) on the kernels phase's reads of the flagship and the
-      plate: its time beside K1's and its bound, K1's whole output (the
+      plate: ``td_estep``'s CT and E against its plain version on the same
+      CUDA stack (rtol 1e-4, atol 1e-6) and a second launch's bits against
+      the first's, its time and the plain version's beside K1's and its
+      bound, K1's whole output (the
       stack the E-step reads, its log scales and logP) against its plain
       version, the card's counts against the same E-step on the host fed
       the card's stack and, apart, fed the stack of K1's plain version run
@@ -76,8 +79,9 @@ Phases, each fatal on failure (no phase catches its own error):
       (1e-4), 4 shards on the card against 1 (rtol 1e-5, atol 1e-6); then
       one EM iteration over 1M generated flagship reads
       (``DistributedTrainer.expected_segment_counts``, ``reestimate``):
-      its wall and split (K1, E-step, host mapping, reestimate), K1
-      launched, every re-estimated emission row summing to 1 within 1e-3,
+      its wall and split (K1, E-step, host mapping, reestimate), K1 and
+      ``td_estep`` launched, every re-estimated emission row summing to 1
+      within 1e-3,
       and sum logP before and after (reported); then K1's whole output at
       the shape the iteration gave it (its first sub-batch) against its
       plain version;
@@ -90,8 +94,10 @@ Phases, each fatal on failure (no phase catches its own error):
       mode; every merged file must have the sha256 of a's, the shards and
       sidecars must be gone, both logfiles must give a's threshold and
       totals, each process must launch K1, K2 and K3, host 1 must stream in
-      >= 3 windows, and each host must parse exactly the records of the
-      chunks it owns (``TAGDUST_TPU_IO_STATS``), skipping the rest;
+      >= 3 windows, each host must parse exactly the records of the
+      chunks it owns (``TAGDUST_TPU_IO_STATS``), skipping the rest, and
+      the two processes' peak allocations on the shared card must sum to
+      at most one ``STACK_BYTES`` (each sizes by its half);
    h. ``mesh``: ``ShardedScorer`` over [cuda:0, cuda:0]: its decided and
       label-carrying rows against ``CudaEngine``'s (sha256) at B = 16,384,
       Lp = 64 on the flagship and the plate, ``DistributedTrainer`` over
@@ -124,7 +130,8 @@ times, its launches on the main paths, and its bound on this card (the
 larger of the bytes it must move over 3.35 TB/s and the f32 operations the
 inputs need over 67 TFLOP/s, ``bound``; K3's path reads at 32-byte sector
 granularity; ``td_myers`` by its 32-bit integer instructions over 64 lanes
-an SM and clock, ``myers_bound``); the last line is
+an SM and clock, ``myers_bound``; ``td_estep`` from the train phase on the
+plate, ``estep_bound``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -142,7 +149,9 @@ import time
 import numpy as np
 
 SOURCE = "tagdust_tpu_torch/engine/csrc/fused_dp.cu"
-MYERS_SOURCE = "tagdust_tpu_torch/engine/csrc/myers.cu"
+# the kernels of their own sources; every other counter is fused_dp.cu's
+SOURCES = {"myers": "tagdust_tpu_torch/engine/csrc/myers.cu",
+           "estep": "tagdust_tpu_torch/engine/csrc/estep.cu"}
 PK = "tagdust_tpu/engine/pallas_kernel.py"
 # (counter, name, Pallas kernel it replaces, model whose kernels-phase run
 # gives the row its numbers: the plate, the lattice of the main path with
@@ -158,6 +167,9 @@ KERNELS = [
     # the JAX package leaves this scan to XLA; its numbers come from the
     # myers phase (every contaminant and both orientations in one launch)
     ("myers", "td_myers", "tagdust_tpu/engine/myers_tpu.py:39", "myers"),
+    # the E-step, an XLA scan in the JAX package too; its numbers come from
+    # the train phase on the plate
+    ("estep", "td_estep", "tagdust_tpu/parallel/mesh.py:251", "plate"),
 ]
 # kernels-phase runs (model, grouped, full); K3 does not depend on the mode,
 # and the dense run, the main paths' mode, is the later one.  "spacer" is
@@ -1236,12 +1248,14 @@ def phase_long(bcs, seed: int, tmp: str) -> dict:
     return dict(stats, peak=peak, differ=len(rows))
 
 
-# the train phase: the E-step at the kernels phase's shape on the flagship
-# and the plate, held on the first TRAIN_HOST_READS reads against the same
-# E-step on the host fed the card's stack and fed the host's plain K1's
-# stack (rtol 1e-4, atol 1e-6: the same sums in another order,
-# index_add_'s atomics on the card, and the host's exp and log, over 64
-# rescaled positions), TRAIN_SHARDS shards against one within the CPU
+# the train phase: the E-step (td_estep) at the kernels phase's shape on the
+# flagship and the plate, held against its plain version on the same CUDA
+# stack and, on the first TRAIN_HOST_READS reads, against the plain E-step
+# on the host fed the card's stack and fed the host's plain K1's stack
+# (rtol 1e-4, atol 1e-6: the same sums in another order, the kernel's f64
+# partials against f32 sums with index_add_'s atomics, and the host's exp
+# and log, over 64 rescaled positions), TRAIN_SHARDS shards against one
+# within the CPU
 # tests' rtol 1e-5 / atol 1e-6; then one EM iteration over TRAIN_READS
 # generated flagship reads.  K1's output, wherever the E-step reads it,
 # is held against its plain version on the same tensors: the stack within
@@ -1284,11 +1298,14 @@ def k1_against_plain(tag: str, sc, seqs, lens, got) -> dict:
 
 def estep_bound(eng, seqs, lens) -> dict:
     """The least time the card could take for the E-step on these inputs:
-    the larger of its bytes (K1's stack and log scales, logP, the reads, the
-    non-zero entries of A as (src, dst, value), CT [5, S, S] and E [5, S]
-    written once) over HBM_RATE, and its f32 operations over F32_RATE: per
-    (read, position) inside the read, under its base c, 2 nnz(A[c]) for
-    ``vn = v A[c]`` and 2 nnz(A[c]) for the transition mass, and 5 S for the
+    the larger of its bytes over HBM_RATE and its f32 operations over
+    F32_RATE.  The bytes are what this run's data needs, each read once:
+    per step (a read's position k < len with a base 0-4) its stack row
+    ``bstack[k+1]`` (S floats) and log scale ``blstack[k+1]``; per read its
+    logP and length and its len bases; the non-zero entries of A as (src,
+    dst, value); and the per-entry mass [nnz] and E [5, S] written once.
+    The operations: per step under its base c, 2 nnz(A[c]) for ``vn = v
+    A[c]`` and 2 nnz(A[c]) for the transition mass, and 5 S for the
     emission mass (3) and the rescale (2)."""
     import torch
 
@@ -1296,13 +1313,58 @@ def estep_bound(eng, seqs, lens) -> dict:
     B, Lp = seqs.shape
     pos = torch.arange(Lp, device=seqs.device)[None, :] < lens[:, None]
     steps = torch.bincount(seqs.long()[pos], minlength=6)[:5].double().cpu().numpy()
+    bases = float(lens.double().sum())
     nnz = np.array([np.count_nonzero(eng.lat.A[c]) for c in range(5)])
-    nbytes = ((Lp + 1) * B * (S + 1) * 4 + 4 * B + B * Lp + 4 * B + 12 * nnz.sum()
-              + 4 * 5 * S * S + 4 * 5 * S)
+    nbytes = (steps.sum() * (S + 1) * 4 + B * (4 + 4) + bases + 12 * nnz.sum()
+              + 4 * nnz.sum() + 4 * 5 * S)
     ops = 4 * (steps @ nnz) + 5 * S * steps.sum()
     tb, to = 1e3 * nbytes / HBM_RATE, 1e3 * ops / F32_RATE
     return {"bound_ms": float(max(tb, to)),
             "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def estep_against_plain(tag: str, tab: dict, seqs, lens, stack, got) -> dict:
+    """The E-step's counts ``got`` = (CT, E) of ``seqs`` / ``lens`` from
+    K1's ``stack`` (``td_estep`` on CUDA tensors) against its plain version
+    on the same tensors (HOST_RTOL / HOST_ATOL: the same sums in another
+    order), and a second launch against the first, bit for bit; on the card
+    the kernel (``estep.forward_counts_cuda``) and the plain version are
+    timed.  -> max |d|, both errors in units of the tolerance, ms, plain
+    ms."""
+    import torch
+
+    from tagdust_tpu_torch.engine import estep
+    from tagdust_tpu_torch.parallel import mesh
+
+    dev, S = seqs.device, tab["S"]
+
+    def counts(fn):
+        ct, e = mesh.Kahan(tab["off"][-1], dev), mesh.Kahan((5, S), dev)
+        fn(tab, seqs, lens, *stack, ct, e)
+        return mesh._dense(tab, ct.sum), e.sum
+
+    plain = counts(estep.forward_counts_plain)
+    again = counts(estep.forward_counts)
+    err = [rel_err(a.cpu().numpy(), b.cpu().numpy(), HOST_ATOL, HOST_RTOL)
+           for a, b in zip(got, plain)]
+    dmax = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, plain))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ms = plain_ms = float("nan")
+    if seqs.is_cuda:
+        ms = timed(lambda: estep.forward_counts_cuda(tab, seqs, lens, *stack))
+        plain_ms = timed(lambda: estep.forward_counts_plain(
+            tab, seqs, lens, *stack, mesh.Kahan(tab["off"][-1], dev),
+            mesh.Kahan((5, S), dev)))
+    print(f"[{tag}] td_estep against its plain version on the same stack: CT "
+          f"{err[0][0]:.3g}, E {err[1][0]:.3g} of the tolerance, max|d| {dmax:.3g}; "
+          f"a second launch {'equal' if same else 'DIFFERENT'} bit for bit; "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    if not all(ok for _, ok in err):
+        fail(f"{tag}: td_estep's counts differ from its plain version's")
+    if not same:
+        fail(f"{tag}: two launches of td_estep gave different bits")
+    return {"max_abs_err": dmax, "err": err[0][0], "err_E": err[1][0], "ms": ms,
+            "plain_ms": plain_ms}
 
 
 def rel_err(a, b, atol: float, rtol: float) -> tuple:
@@ -1336,13 +1398,11 @@ def train_lattice(name: str, eng, seed: int, B: int = 16384, Lp: int = 64,
     sc = eng.scorer
     stack = sc.backward(seqs, lens)
     tab = mesh.count_tables(eng.lat, device)
-    estep = lambda: mesh._expected_lattice_counts(  # noqa: E731
-        eng, seqs, lens, stack=stack, tables=tab)
-    CT, E, n = estep()
+    CT, E, n = mesh._expected_lattice_counts(eng, seqs, lens, stack=stack, tables=tab)
     n = int(n)
     cuda = device == "cuda"
     k1_ms = timed(lambda: sc.backward(seqs, lens)) if cuda else float("nan")
-    es_ms = timed(estep) if cuda else float("nan")
+    kern = estep_against_plain(tag, tab, seqs, lens, stack, (CT, E))
     bd = estep_bound(eng, seqs, lens)
     k1 = k1_against_plain(tag, sc, seqs, lens, stack)
 
@@ -1370,7 +1430,8 @@ def train_lattice(name: str, eng, seed: int, B: int = 16384, Lp: int = 64,
     one = DistributedTrainer(eng).run(seqs_np, lens_np)
     many = DistributedTrainer(eng, [device] * TRAIN_SHARDS).run(seqs_np, lens_np)
     shards = [rel_err(a, b, SHARD_ATOL, SHARD_RTOL) for a, b in zip(many[:2], one[:2])]
-    print(f"[{tag}] B={B}, Lp={Lp}: E-step {es_ms:.3f} ms, K1 {k1_ms:.3f} ms, bound "
+    print(f"[{tag}] B={B}, Lp={Lp}: E-step (td_estep) {kern['ms']:.3f} ms, its plain "
+          f"version {kern['plain_ms']:.3f} ms, K1 {k1_ms:.3f} ms, bound "
           f"{bd['bound_ms']:.3f} ms ({bd['bound_by']}); card against host on "
           f"{h} reads (host E-step {host_s:.1f} s): CT {host[0][0]:.3g}, E "
           f"{host[1][0]:.3g} of the tolerance on the card's stack, CT "
@@ -1388,7 +1449,9 @@ def train_lattice(name: str, eng, seed: int, B: int = 16384, Lp: int = 64,
         fail(f"{tag}: E.sum or CT.sum is not the bases scored")
     if not all(ok for _, ok in shards) or len({many[2], one[2], n}) != 1:
         fail(f"{tag}: {TRAIN_SHARDS} shards differ from 1")
-    return {"estep_ms": es_ms, "k1_ms": k1_ms, **bd, "host_err": host[0][0],
+    return {"estep_ms": kern["ms"], "estep_plain_ms": kern["plain_ms"],
+            "estep_max_abs_err": kern["max_abs_err"], "estep_err": kern["err"],
+            "estep_err_E": kern["err_E"], "k1_ms": k1_ms, **bd, "host_err": host[0][0],
             "host_err_E": host[1][0], "plain_err": plain[0][0],
             "plain_err_E": plain[1][0], "k1_stack_err": k1["bstack"],
             "k1_log_err": max(k1["blstack"], k1["logpb"]),
@@ -1448,14 +1511,15 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     before = float(eng.backward_scores(seqs, lens).astype(np.float64).sum())
     after = float(CudaEngine(mb2, device).backward_scores(seqs, lens)
                   .astype(np.float64).sum())
-    print(f"[train em] one EM iteration over {n_reads} flagship reads: "
+    print(f"[train em] one EM iteration over {n_reads} flagship reads in sub-batches "
+          f"of {mesh.estep_reads(eng, seqs.shape[1])}: "
           f"{t2 - t0:.2f} s wall; K1 {split['backward_s']:.2f} s, E-step "
           f"{split['estep_s']:.2f} s, host mapping {split['map_s']:.2f} s, "
           f"reestimate {split['reestimate_s']:.3f} s; launches {launches}, "
           f"plain-on-CUDA calls {plain}; emission rows sum to 1 within {worst:.3g}; "
           f"sum logP before {before:.1f}, after {after:.1f}", flush=True)
-    if device == "cuda" and launches["bwd"] <= 0:
-        fail(f"train: K1 never launched on the EM iteration: {launches}")
+    if device == "cuda" and min(launches["bwd"], launches["estep"]) <= 0:
+        fail(f"train: K1 or td_estep never launched on the EM iteration: {launches}")
     if plain:
         fail(f"train: plain versions ran {plain} times on CUDA tensors")
     if worst > 1e-3:
@@ -1464,7 +1528,7 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     # K1's whole output at the shape the EM iteration gave it (its first
     # sub-batch) against its plain version on the same tensors, after the
     # counts were read
-    step = min(n_reads, eng.STACK_BYTES // mesh.estep_bytes(eng, 1, seqs.shape[1]))
+    step = min(n_reads, mesh.estep_reads(eng, seqs.shape[1]))
     s = torch.from_numpy(seqs[:step]).to(device)
     ln = torch.from_numpy(lens[:step]).to(device)
     got = eng.scorer.backward(s, ln)
@@ -1661,6 +1725,17 @@ def phase_multihost(single: dict, tmp: str) -> dict:
                  f"{h['io']['skipped']} records; it owns {own} of {n}")
     if hosts[1]["stream"]["windows"] < 3 or hosts[1]["stream"]["oneshot_after_failure"]:
         fail(f"multihost: host 1 streamed {hosts[1]['stream']}")
+    if cuda:
+        from tagdust_tpu_torch.engine.cuda import CudaEngine
+
+        # both processes use the one card: each gets half its budget
+        peaks = [h["max_mem"] for h in hosts]
+        print(f"[multihost] peak allocations on the shared card: host 0 {peaks[0]}, "
+              f"host 1 {peaks[1]} bytes, together {sum(peaks)} of STACK_BYTES "
+              f"{CudaEngine.STACK_BYTES}", flush=True)
+        if sum(peaks) > CudaEngine.STACK_BYTES:
+            fail(f"multihost: the two processes' peaks {peaks} sum past one card's "
+                 f"STACK_BYTES {CudaEngine.STACK_BYTES}")
     print(f"[multihost] {files} merged files equal the single run's, the logfiles "
           f"its totals ({want})", flush=True)
     return {"wall_s": wall, "hosts": hosts, "launches": {
@@ -1867,6 +1942,11 @@ def main() -> int:
         if on("train"):
             train = phase_train(sets, args.seed)
             paths["train"] = {"launches": train["em"]["launches"]}
+            p = train["plate"]
+            timing["estep", "plate"] = {
+                "max_abs_err": p["estep_max_abs_err"], "ms": p["estep_ms"],
+                "plain_ms": p["estep_plain_ms"], "bound_ms": p["bound_ms"],
+                "bound_by": p["bound_by"]}
             print(f"train times above on: {card}", flush=True)
         if on("multihost"):
             paths["multihost"] = phase_multihost(paths["flagship"], tmp)
@@ -1896,13 +1976,16 @@ def main() -> int:
             print(f"long-read times above on: {card}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if not only and min(launches[k] for k in ("bwd", "fwd", "tb", "score", "myers")) <= 0:
+    need = [] if only else ["bwd", "fwd", "tb", "score", "myers"]
+    if on("train"):
+        need.append("estep")
+    if need and min(launches[k] for k in need) <= 0:
         fail(f"a kernel launched on no main path: {launches}")
 
     # no single PyTorch call computes these recurrences: library_ms is null
     rec = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": MYERS_SOURCE if key == "myers" else SOURCE, "replaces": rep,
+         "source": SOURCES.get(key, SOURCE), "replaces": rep,
          "launches": launches[key], **{f: timing[key, model][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "library_ms": None}

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where one position of the dense K1 (``td_bwd``) and K2 (``td_fwd``) goes,
-in SM cycles, on one CUDA card.
+"""Where one position of the dense K1 (``td_bwd``) and K2 (``td_fwd``), and
+of the E-step kernel ``td_estep``, goes, in SM cycles, on one CUDA card.
 
-    python3 step_profile.py [--seed N] [--models flagship,plate]
+    python3 step_profile.py [--seed N] [--models flagship,plate] [--estep]
 
-(models: 8, flagship, 48, plate, and R:N, on which only K1 runs.)
+(models: 8, flagship, 48, plate, and R:N, on which only K1 runs.  With
+``--estep``: ``td_estep`` on the models' K1 stacks instead, from a copy of
+``csrc/estep.cu`` probed the same way, block parts only, per (block,
+tile-position).)
 
 Builds a copy of ``tagdust_tpu_torch/engine/csrc/fused_dp.cu`` with
 ``clock64()`` probes written into it (under ``build/step_profile/``; the
@@ -25,8 +28,9 @@ whose results go unused (``red`` instructions), a few per warp and
 position.  The instrumented kernel's time (CUDA events, median of 3) is
 printed beside the sum of its parts; the card's name, power limit and
 highest SM clock close the output.  The probes are placed by the text of
-the source: ``PROBES`` names the lines that anchor them, and the script
-fails on a source whose anchors it does not find.
+the source: ``PROBES`` (``ESTEP_PROBES`` for ``td_estep``) names the lines
+that anchor them, and the script fails on a source whose anchors it does
+not find.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import numpy as np
 import chip_smoke as cs
 
 SOURCE = "tagdust_tpu_torch/engine/csrc/fused_dp.cu"
+ESTEP_SOURCE = "tagdust_tpu_torch/engine/csrc/estep.cu"
 OUT_DIR = os.path.join("build", "step_profile")
 
 PRELUDE = r"""
@@ -132,6 +137,25 @@ PROBES = {
 }
 
 
+# td_estep: the same kind of edits in estep_kernel, a block probe after each
+# barrier of its position loop (each anchored by the part that follows it),
+# and the names of its block parts
+ESTEP_PROBES = {
+    "edits": [
+        ("estep_kernel", [
+            ("  const int tid = threadIdx.x,", "  TD_BEGIN\n  const int tid = threadIdx.x,"),
+            ("      __syncthreads();\n\n      // B: the step",
+             "      __syncthreads();\n      TD_BLK(0)\n\n      // B: the step"),
+            ("      __syncthreads();\n\n      // C: rescale",
+             "      __syncthreads();\n      TD_BLK(1)\n\n      // C: rescale"),
+            ("      __syncthreads();\n    }\n    __syncthreads();  // every thread",
+             "      __syncthreads();\n      TD_BLK(2)\n    }\n    __syncthreads();  // every thread"),
+        ]),
+    ],
+    "blk": ["A: reads by base, weights", "B: step and mass", "C: rescale"],
+}
+
+
 def function_span(src: str, name: str) -> tuple:
     """(start, end) of the definition of device function ``name`` (None if
     the source has none): from its name's first occurrence followed by '('
@@ -144,10 +168,11 @@ def function_span(src: str, name: str) -> tuple:
     return m.start(), end
 
 
-def instrument(src: str) -> str:
-    """The source with the probes of PROBES placed in it."""
+def instrument(src: str, probes: dict = PROBES) -> str:
+    """The source with the probes of ``probes`` (PROBES, ESTEP_PROBES)
+    placed in it."""
     out = src
-    for fn, edits in PROBES["edits"]:
+    for fn, edits in probes["edits"]:
         span = function_span(out, fn)
         if span is None:
             raise SystemExit(f"step_profile: the source has no function {fn}")
@@ -177,18 +202,19 @@ def instrument(src: str) -> str:
     return out[:ns] + PRELUDE + out[ns:] + EPILOGUE
 
 
-def build_library(src_text: str) -> str:
-    """Compile the instrumented kernel source beside the other sources into
-    a library that ``engine.build.lib`` then loads."""
+def build_library(src_text: str, source: str = SOURCE) -> str:
+    """Compile the instrumented copy of ``source`` beside the other sources
+    into a library that ``engine.build.lib`` then loads."""
     from tagdust_tpu_torch.engine import build
 
     os.makedirs(OUT_DIR, exist_ok=True)
     for f in os.listdir(OUT_DIR):
         os.remove(os.path.join(OUT_DIR, f))
-    cu = os.path.join(OUT_DIR, "fused_dp_probed.cu")
+    name = os.path.basename(source)
+    cu = os.path.join(OUT_DIR, name.replace(".cu", "_probed.cu"))
     with open(cu, "w") as fh:
         fh.write(src_text)
-    srcs = [cu] + [s for s in build._sources() if not s.endswith("fused_dp.cu")]
+    srcs = [cu] + [s for s in build._sources() if not s.endswith(name)]
     objs, procs = [], []
     for s in srcs:
         obj = os.path.join(OUT_DIR, os.path.basename(s) + ".o")
@@ -205,10 +231,50 @@ def build_library(src_text: str) -> str:
     return so
 
 
+def profile_estep(L, name: str, seqs, lens, buf) -> None:
+    """``td_estep`` on model ``name``'s K1 stack: its time (CUDA events,
+    median of 3) and its block parts per (block, tile-position)."""
+    import torch
+
+    from tagdust_tpu_torch.engine import estep
+    from tagdust_tpu_torch.engine.cuda import CudaEngine
+    from tagdust_tpu_torch.parallel import mesh
+
+    eng = CudaEngine(cs.library_model(cs.barcode_sets()[name]), "cuda")
+    stack = eng.scorer.backward(seqs, lens)
+    tab = mesh.count_tables(eng.lat, seqs.device)
+    fn = lambda: estep.forward_counts_cuda(tab, seqs, lens, *stack)  # noqa: E731
+    ms = cs.timed(fn, reps=3)
+    L.td_prof_reset()
+    fn()
+    if L.td_prof_read(ctypes.addressof(buf)):
+        raise SystemExit("step_profile: reading the probes' sums failed")
+    v = np.frombuffer(buf, dtype=np.uint64).astype(np.float64)
+    rt = L.td_estep_reads_per_tile(eng.lat.S)
+    B = seqs.shape[0]
+    tiles = -(-B // rt)
+    # each tile walks the positions of its longest read
+    ln = np.zeros(tiles * rt, dtype=np.int64)
+    ln[:B] = lens.cpu().numpy()
+    per = float(ln.reshape(tiles, rt).max(axis=1).sum())
+    parts = ESTEP_PROBES["blk"]
+    blk = v[: len(parts)] / per
+    total = blk.sum()
+    print(f"[{name} S={eng.lat.S}] td_estep: {rt} reads per tile, {tiles} tiles, "
+          f"probed kernel {ms:.3f} ms; cycles per (block, tile-position), "
+          f"block parts summing to {total:.0f}:", flush=True)
+    for k, p in enumerate(parts):
+        print(f"    {p:40s} {blk[k]:10.0f}  {100 * blk[k] / total:5.1f}%")
+    del stack
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--models", default="flagship,plate")
+    ap.add_argument("--estep", action="store_true",
+                    help="profile td_estep instead of K1 and K2")
     args = ap.parse_args()
 
     import torch
@@ -218,8 +284,10 @@ def main() -> int:
     from tagdust_tpu_torch.engine import build
     from tagdust_tpu_torch.engine.cuda import CudaEngine
 
-    with open(SOURCE) as fh:
-        so = build_library(instrument(fh.read()))
+    source = ESTEP_SOURCE if args.estep else SOURCE
+    with open(source) as fh:
+        text = fh.read()
+    so = build_library(instrument(text, ESTEP_PROBES if args.estep else PROBES), source)
     build.build = lambda verbose=False: so  # lib() loads the probed library
     L = build.lib()
     L.td_prof_read.argtypes = [ctypes.c_void_p]
@@ -230,6 +298,9 @@ def main() -> int:
     lens = torch.from_numpy(rng.integers(40, Lp + 1, B).astype(np.int32)).cuda()
     buf = (ctypes.c_ulonglong * (16 + 16 * 32 + 1))()
     for name in args.models.split(","):
+        if args.estep:
+            profile_estep(L, name, seqs, lens, buf)
+            continue
         sc = CudaEngine(cs.library_model([] if name == "R:N" else sets[name]), "cuda").scorer
         out = {}
         runs = {"bwd": lambda: sc.backward(seqs, lens)}

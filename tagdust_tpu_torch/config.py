@@ -89,7 +89,7 @@ class Params:
     profile_dir: Optional[str] = None
     show_help: bool = False
     show_version: bool = False
-    # multi-host execution (not ported: the controller raises)
+    # multi-host execution (parallel/multihost.py)
     multihost: bool = False
     coordinator: Optional[str] = None
     num_processes: Optional[int] = None

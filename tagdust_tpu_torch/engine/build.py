@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
 At first use ``nvcc`` compiles the sources for ``sm_90a`` (one ``nvcc`` per
-source, all started together) and links them into a shared library with a
-plain C interface under ``build/tagdust_tpu_torch/`` beside the package
-(git-ignored), named by a hash of the sources so that an edit rebuilds.
+source, all started together; the headers ``csrc/*.cuh`` on the include
+path) and links them into a shared library with a plain C interface under
+``build/tagdust_tpu_torch/`` beside the package (git-ignored), named by a
+hash of the sources and headers so that an edit rebuilds.
 ``ctypes`` loads it.  Every C entry point returns ``cudaGetLastError()``;
 ``check`` raises on anything but 0, so a refused or failed launch never
 passes silently.
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", _CSRC,
 ]
 
 _lib = None
@@ -48,7 +49,7 @@ def _sources() -> list:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(src, "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -110,8 +111,11 @@ def lib():
     L.td_tb.argtypes = [P, P, P] + [I] * 5 + [P]
     L.td_blocks_per_sm.argtypes = [I] * 10 + [P, I]
     L.td_myers.argtypes = [P, P, I, P, I, P, P, I, P]
+    L.td_estep_reads_per_tile.argtypes = [I]
+    L.td_estep.argtypes = [P] * 14 + [I] * 7 + [P]
     for fn in (L.td_reads_per_block, L.td_bwd, L.td_bwd_score, L.td_fwd, L.td_tb,
-               L.td_blocks_per_sm, L.td_myers):
+               L.td_blocks_per_sm, L.td_myers, L.td_estep_reads_per_tile,
+               L.td_estep):
         fn.restype = I
     _lib = L
     return L

@@ -126,6 +126,15 @@ class CudaEngine:
         }
         self._dec_tables["is_r_full"] = t(self._is_r_label())
 
+    def stack_budget(self) -> int:
+        """This process's share of ``STACK_BYTES`` on its card: the budget
+        divided among the host's processes that use the card
+        (``multihost.local_cards``; all of it without a process group).
+        Every sizing of a launch or sub-batch reads it."""
+        from ..parallel.multihost import local_cards
+
+        return self.STACK_BYTES // local_cards()[1]
+
     def on(self, device) -> "CudaEngine":
         """This compiled model on ``device``, without a second
         ``compile_lattice``: the lattice and tables shared, the scorer's
@@ -235,7 +244,7 @@ class CudaEngine:
                 "long-reads",
                 f"reads pad to {Lp}nt > {LONG_READ_NT}nt; scoring them on the "
                 f"{'CUDA kernels' if seqs.is_cuda else 'plain versions'} in "
-                f"sub-batches whose buffers stay inside {self.STACK_BYTES} bytes",
+                f"sub-batches whose buffers stay inside {self.stack_budget()} bytes",
             )
         nbytes = self.launch_bytes(B, Lp, packed)
         if nbytes > LAUNCH_STATS["bytes"]:
@@ -278,17 +287,19 @@ class CudaEngine:
     def run_batch_fused(self, seqs: np.ndarray, lens: np.ndarray,
                         want_labels: bool = True) -> BatchResult:
         """Fused-kernel path (tpu.py run_batch_pallas), in sub-batches
-        whose buffers stay inside STACK_BYTES: a multiple of the batch
-        granularity where one fits, else as many reads as fit, down to one.
-        A read whose buffers alone exceed the budget is refused."""
+        whose buffers stay inside this process's share of STACK_BYTES
+        (``stack_budget``): a multiple of the batch granularity where one
+        fits, else as many reads as fit, down to one.  A read whose buffers
+        alone exceed the budget is refused."""
         B, Lp = seqs.shape
         BT = self.default_batch_tile()
-        max_b = self.reads_within(Lp, self.STACK_BYTES)
+        budget = self.stack_budget()
+        max_b = self.reads_within(Lp, budget)
         if max_b == 0:
             raise RuntimeError(
                 f"a read padded to {Lp}nt needs {self.launch_bytes(1, Lp)} bytes "
-                f"of device buffers, over the {self.STACK_BYTES}-byte budget "
-                "(CudaEngine.STACK_BYTES)"
+                f"of device buffers, over the {budget}-byte budget "
+                "(CudaEngine.STACK_BYTES, this process's share)"
             )
         if max_b >= BT:
             max_b = max_b // BT * BT

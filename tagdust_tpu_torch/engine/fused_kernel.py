@@ -20,8 +20,8 @@ kernels keep their carries' columns swizzled (``tables.swizzle``), so K2's
 dense matrices.
 
 ``LAUNCHES`` counts kernel launches per kernel and mode (and those of
-``td_myers``, ``engine/myers.py``), so a run can show that its main path
-went through the kernels.
+``td_myers``, ``engine/myers.py``, and ``td_estep``, ``engine/estep.py``),
+so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from . import scan
 from .tables import label_tables, sliced_tables, staged_tables, swizzle
 
 LAUNCHES = {"bwd": 0, "fwd": 0, "tb": 0, "bwd_grouped": 0, "fwd_grouped": 0,
-            "score": 0, "score_grouped": 0, "myers": 0}
+            "score": 0, "score_grouped": 0, "myers": 0, "estep": 0}
 
 # the plain versions' tables; the kernels read theirs from the blobs
 _TABLES = ("Afwd", "Abwd", "end", "Lmap", "ent_state", "tmat")

@@ -94,7 +94,7 @@ def _mesh_scorer(eng, B: int, Lp: int, budget: int = None, packed: bool = False)
     """The cached ``ShardedScorer`` of ``eng`` over this process's devices of
     the engine's type (``local_devices``), or None: with fewer than two,
     when B reads do not give every shard a batch tile, when a shard of one
-    tile would not fit its share of ``budget`` (default ``STACK_BYTES``) at
+    tile would not fit its share of ``budget`` (default ``stack_budget()``) at
     Lp, or under TAGDUST_TPU_MESH=0 (the counterpart of JAX
     ``runner.py:_mesh_scorer``).  With one card nothing changes."""
     if os.environ.get("TAGDUST_TPU_MESH", "1") == "0":
@@ -110,7 +110,7 @@ def _mesh_scorer(eng, B: int, Lp: int, budget: int = None, packed: bool = False)
 
         cache[key] = ShardedScorer(eng, devs)
     scorer = cache[key]
-    if scorer.shard_reads(Lp, budget or eng.STACK_BYTES, packed) < BT:
+    if scorer.shard_reads(Lp, budget or eng.stack_budget(), packed) < BT:
         return None
     return scorer
 
@@ -122,7 +122,7 @@ def _run_sharded(scorer, seqs: np.ndarray, lens: np.ndarray, want_labels: bool):
     eng = scorer.engine
     B, Lp = seqs.shape
     BT = eng.default_batch_tile()
-    step = scorer.shard_reads(Lp, eng.STACK_BYTES) // BT * BT * scorer.n
+    step = scorer.shard_reads(Lp, eng.stack_budget()) // BT * BT * scorer.n
     parts = [scorer.run(seqs[s : s + step], lens[s : s + step],
                         want_labels=want_labels)[0]
              for s in range(0, B, step)]
@@ -363,7 +363,7 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     Lpad = max((int(Lmax) + 31) // 32 * 32, 32)
     DEPTH = max(int(os.environ.get("TAGDUST_TPU_PIPELINE_DEPTH", "3")), 1)
     BT = eng.default_batch_tile()
-    budget = eng.STACK_BYTES // DEPTH
+    budget = eng.stack_budget() // DEPTH
     scorer = _mesh_scorer(eng, B, Lpad, budget, not decided)  # None on one card
     n = scorer.n if scorer is not None else 1
     gran = BT * n  # every shard gets whole tiles

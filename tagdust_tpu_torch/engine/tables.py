@@ -28,7 +28,9 @@ walks the non-zero entries of each column of ``tmat`` (``label_tables``).
 ``staged_tables`` packs a kernel's tables into one blob, of which the
 kernel copies a prefix into shared memory.  The grouped (block-banded)
 step mode has its own tables, built from
-``lattice.grouped_step_decomposition`` by ``grouped_tables``.
+``lattice.grouped_step_decomposition`` by ``grouped_tables``.  The
+Baum-Welch E-step kernel (``td_estep``) reads the non-zero entries of each
+base's step matrix grouped by destination (``estep_tables``).
 """
 
 from __future__ import annotations
@@ -232,6 +234,43 @@ def sliced_tables(M: np.ndarray, S: int) -> dict:
     return {"hv_ptr": hv_ptr, "hv_out": swizzle(heavy).astype(np.int32),
             "hv_ent": hv_ent, "sl_ptr": sl_ptr, "sl_out": sl_out, "sl_idx": sl_idx,
             "sl_val": sl_val}
+
+
+def estep_tables(A: np.ndarray) -> dict:
+    """The entry table of the E-step kernel ``td_estep`` (csrc/estep.cu):
+    the non-zero entries ``(c, s, t)`` of the step matrices ``A`` [5, S, S]
+    (as float32), per base grouped by destination ``t``, so that the thread
+    that computes ``vn[t]`` for a base's reads owns every entry into ``t``.
+
+    * ``dst_ptr`` [6] int32: base c's destinations are items
+      ``dst_ptr[c]:dst_ptr[c+1]``;
+    * ``dst`` [items] int32: each item's destination, ascending per base;
+    * ``ent_ptr`` [items+1] int32: item i's entries are
+      ``ent_ptr[i]:ent_ptr[i+1]``;
+    * ``src`` [nnz] int32 and ``val`` [nnz] f32: each entry's source,
+      ascending per item, and ``A[c][s, t]``;
+    * ``flat`` [nnz] int32: each entry's index in the flat transition mass
+      of ``parallel.mesh.count_tables`` (per base in ``np.nonzero``'s
+      row-major order, the bases end to end), where the kernel writes it."""
+    A = np.asarray(A, dtype=np.float32)
+    dst_ptr, dst, ent_ptr, src, val, flat = [0], [], [[0]], [], [], []
+    base = 0
+    for c in range(5):
+        s, t = np.nonzero(A[c])  # row-major: count_tables' order
+        order = np.lexsort((s, t))  # by destination, then source
+        ts, ss = t[order], s[order]
+        items, starts = np.unique(ts, return_index=True)
+        dst.append(items)
+        ent_ptr.append(base + np.append(starts[1:], ts.size)[: items.size])
+        dst_ptr.append(dst_ptr[-1] + items.size)
+        src.append(ss)
+        val.append(A[c, ss, ts])
+        flat.append(base + order)
+        base += ts.size
+    i32 = lambda parts: np.concatenate(parts).astype(np.int32)  # noqa: E731
+    return {"dst_ptr": np.asarray(dst_ptr, np.int32), "dst": i32(dst),
+            "ent_ptr": i32(ent_ptr), "src": i32(src),
+            "val": np.concatenate(val).astype(np.float32), "flat": i32(flat)}
 
 
 def label_tables(tmat: np.ndarray) -> dict:

@@ -9,24 +9,27 @@ at :1977-1992):
 * ``local_devices`` is this process's CUDA devices and nothing else: the
   JAX mesh takes the global ``jax.devices()`` (its ``make_mesh``), which
   under ``-multihost`` names other hosts' chips; the port does not copy
-  that;
+  that.  Under a process group the host's processes split its cards
+  (``multihost.card_layout``);
 * ``ShardedScorer`` cuts a window into contiguous shards of whole batch
   tiles, one per entry of its devices (a card may repeat), and dispatches
   each on its card (``CudaEngine.on``: the compiled model placed there)
   from one thread: the launches are asynchronous, so the cards overlap.
   The same per-read kernels run on every shard, so its rows are the
-  one-engine rows.  Two shards on one card share that card's
-  ``STACK_BYTES`` (``per_card``; the runner divides the budget by it);
+  one-engine rows.  Two shards on one card share this process's share of
+  that card's ``STACK_BYTES`` (``per_card``; the runner divides
+  ``CudaEngine.stack_budget`` by it);
 
 * ``_expected_lattice_counts`` is the E-step in lattice state space.  It
   reads K1's stack (``FusedScorer.backward``: ``td_bwd`` on the card, its
   plain version ``scan.backward_pass`` on CPU tensors), so the counts see
   the backward values that production scores see, and runs no second
-  backward recurrence.  The forward recurrence and the counts are torch
-  ops over the non-zero entries of the step matrix ``A[c]`` that each
-  read's base selects: per base, the reads whose base it is, gathered at
-  the entries' (src, dst) and summed over reads.  Nothing is multiplied
-  over the one-hot expansion of the carry or over A[c]'s zeros;
+  backward recurrence.  The forward recurrence and the counts run over the
+  non-zero entries of the step matrix ``A[c]`` that each read's base
+  selects (``engine/estep.py``): the kernel ``td_estep`` on CUDA tensors,
+  its plain version (torch ops per base and position) on CPU tensors.
+  Nothing is multiplied over the one-hot expansion of the carry or over
+  A[c]'s zeros;
 * ``DistributedTrainer`` cuts a batch into contiguous shards, one per
   entry of ``devices`` (any of this process's cards, or the CPU for an
   engine built there), and sums the shards' counts in shard order on the
@@ -34,9 +37,10 @@ at :1977-1992):
   ``torch.distributed`` group of several processes every process passes
   the same batch, process p takes the p-th contiguous block of shards,
   and the sums are ``all_reduce``d on the host (gloo).  Each shard is cut
-  into sub-batches whose buffers, its reads included, stay inside
-  ``CudaEngine.STACK_BYTES`` (``estep_bytes``): a sub-batch's reads go up
-  to the card only when it runs.
+  into sub-batches whose buffers, its reads included, stay inside this
+  process's share of ``CudaEngine.STACK_BYTES`` (``estep_bytes`` of the
+  shard's route, ``estep_reads``): a sub-batch's reads go up to the card
+  only when it runs.
 
 Sums over positions, sub-batches and shards are Kahan-compensated f32, as
 in the JAX package.  Every product runs in full float32 (TF32 off).
@@ -51,8 +55,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine import scan
 from ..engine.cuda import BatchResult, _indexed
+from ..engine.estep import forward_counts
+from ..engine.tables import estep_tables
 
 # seconds spent since the last reset by DistributedTrainer calls: K1 (the
 # backward recurrence and its stack), the E-step (the forward recurrence
@@ -61,10 +66,12 @@ TIMINGS = {"backward_s": 0.0, "estep_s": 0.0, "map_s": 0.0}
 
 
 def local_devices() -> list:
-    """This process's CUDA devices, none without a card."""
-    if not torch.cuda.is_available():
-        return []
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    """This process's CUDA devices, none without a card: every visible card
+    without a process group, else this process's cards of its host's
+    (``multihost.card_layout``)."""
+    from .multihost import local_cards
+
+    return [torch.device("cuda", i) for i in local_cards()[0]]
 
 
 class ShardedScorer:
@@ -155,9 +162,11 @@ class Kahan:
 def count_tables(lat, device) -> dict:
     """The non-zero entries of each base's step matrix ``A[c]`` (``lat.A``
     as float32, the values the JAX package reads under its default x32):
-    per base ``(src, dst, val)`` on ``device`` (int64, int64, f32), and
-    ``off``, the offsets of each base's entries in the flat transition
-    mass."""
+    per base ``(src, dst, val)`` on ``device`` (int64, int64, f32), the
+    plain E-step's tables; ``off``, the offsets of each base's entries in
+    the flat transition mass; and ``estep``, the same entries as the
+    kernel ``td_estep`` reads them (``tables.estep_tables``, grouped by
+    destination, with each entry's index in the flat mass)."""
     A = np.asarray(lat.A, dtype=np.float32)
     edges, off = [], [0]
     for c in range(5):
@@ -166,77 +175,43 @@ def count_tables(lat, device) -> dict:
                       torch.from_numpy(t.astype(np.int64)).to(device),
                       torch.from_numpy(np.ascontiguousarray(A[c, s, t])).to(device)))
         off.append(off[-1] + int(s.size))
-    return {"S": int(lat.S), "begin": int(lat.begin), "edges": edges, "off": off}
+    estep = {k: torch.from_numpy(v).to(device) for k, v in estep_tables(A).items()}
+    return {"S": int(lat.S), "begin": int(lat.begin), "edges": edges, "off": off,
+            "estep": estep}
 
 
 def estep_bytes(engine, B: int, Lp: int) -> int:
-    """Device bytes of one E-step over B reads padded to Lp: K1's stack and
-    log scales ((Lp+1) * (S+1) * 4 a read), logP, the reads, their codes and
-    order by base (int64), the carries and scales, and the worst case of the
-    per-base temporaries (every read under the base with the most entries,
-    nnz): the gathered flows, backward values and their product (3 nnz
-    floats), and the carry, backward values and new carry sorted by base
-    and the new carry in read order (4 S)."""
+    """Device bytes of one E-step over B reads padded to Lp on the engine's
+    route.  Both: K1's stack and log scales ((Lp+1) * (S+1) * 4 a read),
+    logP and the reads with their lengths.  The kernel (a card engine):
+    its f64 partials, one row of the entries a block (an SM), the mass and
+    E.  The plain version (the CPU): the reads' codes and order by base
+    (int64), the carries and scales, and the worst case of the per-base
+    temporaries (every read under the base with the most entries, nnz): the
+    gathered flows, backward values and their product (3 nnz floats), and
+    the carry, backward values and new carry sorted by base and the new
+    carry in read order (4 S)."""
     S = engine.lat.S
-    nnz = max(int(np.count_nonzero(engine.lat.A[c])) for c in range(5))
-    per_read = ((Lp + 1) * (S + 1) * 4 + 4 + Lp + 4 + 16 * Lp
-                + 4 * (2 * S + 4) + 4 * (3 * nnz + 4 * S))
+    nnz = [int(np.count_nonzero(engine.lat.A[c])) for c in range(5)]
+    per_read = (Lp + 1) * (S + 1) * 4 + 4 + Lp + 4
+    if engine.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(engine.device).multi_processor_count
+        return B * per_read + 8 * sms * sum(nnz) + 4 * sum(nnz) + 4 * 5 * S
+    per_read += 16 * Lp + 4 * (2 * S + 4) + 4 * (3 * max(nnz) + 4 * S)
     return B * per_read
+
+
+def estep_reads(engine, Lp: int) -> int:
+    """The most reads of Lp whose E-step stays inside this process's share
+    of ``STACK_BYTES`` (``CudaEngine.stack_budget``), 0 if one read's does
+    not."""
+    fixed = estep_bytes(engine, 0, Lp)
+    return max(engine.stack_budget() - fixed, 0) // (estep_bytes(engine, 1, Lp) - fixed)
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _forward_counts(tab: dict, seqs, lens, bstack, blstack, logpb,
-                    ct: Kahan, e: Kahan) -> None:
-    """The forward recurrence of one batch (``fwd_step``, mesh.py:293-311
-    of the JAX package), adding its transition mass per entry into ``ct``
-    and its emission mass [5, S] into ``e``.  Slot ``k + 1`` of the port's
-    stack is the JAX stack's slot ``k``: the carry after positions
-    k+1..Lp-1."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    B, Lp = seqs.shape
-    S, dev, off = tab["S"], seqs.device, tab["off"]
-    codes = torch.clamp(seqs.long(), max=5)  # 5: no base, a zero one-hot row
-    order = torch.argsort(codes, dim=0, stable=True)  # [B, Lp]: reads by base
-    counts = torch.stack([(codes == c).sum(dim=0) for c in range(5)], dim=1)
-    counts = counts.cpu().numpy()  # [Lp, 5], the one host sync of a batch
-    v = torch.zeros((B, S), dtype=torch.float32, device=dev)
-    v[:, tab["begin"]] = 1.0
-    ls = torch.zeros(B, dtype=torch.float32, device=dev)
-    for k in range(Lp):
-        act = k < lens
-        # clamped: on padded steps the stale scales can overflow the exp
-        w = torch.exp(torch.clamp_max(ls + blstack[k + 1] - logpb, 60.0)) * act
-        # the reads sorted by their base at k: each base's rows are contiguous
-        perm = order[:, k]
-        vs = v.index_select(0, perm)
-        bws = bstack[k + 1].index_select(0, perm)
-        ws = w.index_select(0, perm)
-        vns = torch.zeros_like(v)
-        inc_ct = torch.zeros(off[-1], dtype=torch.float32, device=dev)
-        inc_e = torch.zeros((5, S), dtype=torch.float32, device=dev)
-        end = 0
-        for c in range(5):
-            start, end = end, end + int(counts[k, c])
-            if start == end:
-                continue
-            src, dst, val = tab["edges"][c]
-            flow = vs[start:end].index_select(1, src) * val  # v[s] A[c][s, t]
-            vns[start:end].index_add_(1, dst, flow)  # v A[c] over the entries
-            mass = ws[start:end] @ (flow * bws[start:end].index_select(1, dst))
-            inc_ct[off[c] : off[c + 1]] = mass
-            # the emission mass at t is the transition mass into t
-            inc_e[c].index_add_(0, dst, mass)
-        ct.add(inc_ct)
-        e.add(inc_e)
-        vn = torch.empty_like(v)
-        vn[perm] = vns
-        vn, lm = scan._rescale(vn)
-        v = torch.where(act[:, None], vn, v)
-        ls = torch.where(act, ls + lm, ls)
 
 
 def _dense(tab: dict, flat: torch.Tensor) -> torch.Tensor:
@@ -258,9 +233,10 @@ def _expected_lattice_counts(engine, seqs: torch.Tensor, lens: torch.Tensor,
     mass 1 and crosses one A[c] edge.
 
     The reads, on the host or on the engine's device, run in sub-batches
-    whose buffers stay inside the engine's STACK_BYTES (``estep_bytes``),
-    each moved to the device, then K1 (``engine.scorer.backward``), then the
-    forward recurrence; the Kahan sums run on across sub-batches.  With
+    whose buffers stay inside this process's share of the engine's
+    STACK_BYTES (``estep_reads``), each moved to the device, then K1
+    (``engine.scorer.backward``), then the forward recurrence
+    (``estep.forward_counts``); the Kahan sums run on across sub-batches.  With
     ``stack`` (K1's ``(bstack, blstack, logpb)`` of these reads, e.g.
     computed on the card and copied to the host) K1 is not run, the batch
     is not cut, and the counts are taken on the reads' device.  ``tables``:
@@ -271,22 +247,22 @@ def _expected_lattice_counts(engine, seqs: torch.Tensor, lens: torch.Tensor,
     e = Kahan((5, tab["S"]), dev)
     n = lens.long().sum().to(dev)
     if stack is not None:
-        _forward_counts(tab, seqs, lens, *stack, ct, e)
+        forward_counts(tab, seqs, lens, *stack, ct, e)
         return _dense(tab, ct.sum), e.sum, n
     B, Lp = seqs.shape
-    step = engine.STACK_BYTES // estep_bytes(engine, 1, Lp)
+    step = estep_reads(engine, Lp)
     if step == 0:
         raise RuntimeError(
             f"a read padded to {Lp}nt needs {estep_bytes(engine, 1, Lp)} bytes of "
-            f"E-step buffers, over the {engine.STACK_BYTES}-byte budget "
-            "(CudaEngine.STACK_BYTES)")
+            f"E-step buffers, over the {engine.stack_budget()}-byte budget "
+            "(CudaEngine.STACK_BYTES, this process's share)")
     for s in range(0, B, step):
         sq, ln = seqs[s : s + step].to(dev), lens[s : s + step].to(dev)
         t0 = time.perf_counter()
         stack = engine.scorer.backward(sq, ln)
         _sync(dev)
         t1 = time.perf_counter()
-        _forward_counts(tab, sq, ln, *stack, ct, e)
+        forward_counts(tab, sq, ln, *stack, ct, e)
         del stack
         _sync(dev)
         TIMINGS["backward_s"] += t1 - t0
@@ -328,7 +304,9 @@ class DistributedTrainer:
         reads stay on the host until their sub-batch runs.  In a process
         group of P processes, each passing the same batch, the batch is cut
         into P blocks of this trainer's shards, process p counts block p, and
-        every process returns the sums over all of them."""
+        every process returns the sums over all of them.  Such a group has
+        run ``multihost.init_multihost`` in every process (or set torchrun's
+        LOCAL_*), so that each knows its cards and budget share."""
         from .multihost import rank_and_world
 
         rank, world = rank_and_world()

@@ -17,12 +17,23 @@ so the process group is ``gloo`` over TCP: it needs no card, and NCCL would
 refuse two ranks on one card.  Every collective is bounded by the group's
 timeout, ``TAGDUST_TPU_BARRIER_TIMEOUT_S`` (default 900 s), and the shard
 barrier by the same value: no collective waits without a limit.
+
+The processes of one host split its cards (``card_layout``; the JAX
+package's ``jax.local_devices()`` is disjoint across processes too): with
+at least as many cards as processes each process owns its own cards, with
+fewer they share them round robin, and every process that uses a card
+gets its share of the card's ``CudaEngine.STACK_BYTES`` (``local_cards``).
+``init_multihost`` finds the host's processes (torchrun's ``LOCAL_RANK`` /
+``LOCAL_WORLD_SIZE``, else one ``all_gather_object`` of the host names,
+the only collective behind the layout) and makes this process's first card
+the current one, so that every later ``"cuda"`` names it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
 import sys
 from datetime import timedelta
 from typing import Optional
@@ -42,6 +53,71 @@ def rank_and_world() -> tuple:
     return 0, 1
 
 
+# (rank, world, group) -> (local rank, local world) found by the host names
+_LOCAL = {}
+
+
+def card_layout(local_rank: int, local_world: int, n_cards: int) -> tuple:
+    """(cards, procs_on_each): the indices of the cards that local process
+    ``local_rank`` of ``local_world`` on a host of ``n_cards`` cards uses,
+    and how many of the host's processes use each of them.  With at least
+    as many cards as processes, process r owns the cards i with
+    ``i % local_world == r`` and shares none; with fewer, it takes card
+    ``r % n_cards`` with the other processes dealt that card."""
+    if n_cards >= local_world:
+        return list(range(local_rank, n_cards, local_world)), 1
+    card = local_rank % n_cards
+    return [card], len(range(card, local_world, n_cards))
+
+
+def local_rank_and_world() -> tuple:
+    """(this process's rank among its host's processes, their number);
+    (0, 1) without a group or in a world of one.  torchrun's
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` where set, else the layout that
+    ``init_multihost`` gathered from the host names.  It makes no
+    collective itself: a group of several processes with neither raises."""
+    rank, world = rank_and_world()
+    if world == 1:
+        return 0, 1
+    if "LOCAL_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+    key = (rank, world, id(dist.group.WORLD))
+    if key not in _LOCAL:
+        raise RuntimeError(
+            "this process's cards are unknown in a group of several processes: "
+            "call multihost.init_multihost() in every process (it gathers the "
+            "host names), or set LOCAL_RANK and LOCAL_WORLD_SIZE")
+    return _LOCAL[key]
+
+
+def _gather_local_layout() -> None:
+    """Every process at once: one ``all_gather_object`` of the host names
+    over the group, from which this process's rank among its host's
+    processes is cached for ``local_rank_and_world``.  Nothing without a
+    group of several processes, or where torchrun set LOCAL_*."""
+    rank, world = rank_and_world()
+    if world == 1 or ("LOCAL_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ):
+        return
+    key = (rank, world, id(dist.group.WORLD))
+    if key in _LOCAL:
+        return
+    names = [None] * world
+    dist.all_gather_object(names, socket.gethostname())
+    peers = [r for r, name in enumerate(names) if name == names[rank]]
+    _LOCAL[key] = (peers.index(rank), len(peers))
+
+
+def local_cards() -> tuple:
+    """``card_layout`` of this process over this host's visible cards (a
+    host without a card counts as one device, the CPU, shared by all its
+    processes): its cards, and how many processes share each, by which
+    each divides ``STACK_BYTES`` (``CudaEngine.stack_budget``; 1 without a
+    group)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    cards, share = card_layout(*local_rank_and_world(), max(n, 1))
+    return (cards if n else []), share
+
+
 def init_multihost(
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -53,7 +129,10 @@ def init_multihost(
     ``tcp://<coordinator>`` with ``num_processes`` and ``process_id``;
     without it at ``env://`` (torchrun's ``MASTER_ADDR``, ``MASTER_PORT``,
     ``RANK`` and ``WORLD_SIZE``).  A world size other than the one asked
-    for is refused."""
+    for is refused.  Then every process finds its host's processes (the
+    one collective behind ``local_rank_and_world``) and makes its first card
+    current.  A caller whose group already exists calls it too, with no
+    arguments, before anything sizes a launch."""
     if not dist.is_initialized():
         kwargs = {"timeout": timedelta(seconds=barrier_timeout_s())}
         if coordinator is not None:
@@ -71,6 +150,10 @@ def init_multihost(
             f"the process group has {dist.get_world_size()} (a group was "
             "initialised before tagdust started, or WORLD_SIZE disagrees)"
         )
+    _gather_local_layout()  # every process at once, here and nowhere else
+    cards, _ = local_cards()
+    if cards:
+        torch.cuda.set_device(cards[0])
     return dist.get_rank(), dist.get_world_size()
 
 

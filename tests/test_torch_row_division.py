@@ -1,5 +1,6 @@
-"""The dense kernels' division of a carry row by its maximum
-(``quot`` in ``tagdust_tpu_torch/engine/csrc/fused_dp.cu``).
+"""The kernels' division of a carry row by its maximum (``quot`` in
+``tagdust_tpu_torch/engine/csrc/rowdiv.cuh``, shared by the dense kernels
+and ``td_estep``).
 
 The kernels must keep the parent kernels' bits, whose rescale is the IEEE
 division ``x / d`` rounded to nearest.  ``quot`` computes the same quotient

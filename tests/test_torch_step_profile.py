@@ -1,6 +1,6 @@
 """``step_profile.py`` places its ``clock64`` probes in a copy of the dense
-kernels' source by text anchors.  The probed build runs only on a card, so
-these tests hold the anchors to the source as it stands: every probe is
+kernels' source, and of ``td_estep``'s, by text anchors.  The probed build
+runs only on a card, so these tests hold the anchors to the source as it stands: every probe is
 placed, each barrier of the position loops gets its block probe, the source
 itself carries no probe, and a source that has lost an anchor is refused."""
 
@@ -40,3 +40,18 @@ def test_a_source_without_an_anchor_is_refused(fn):
     broken = src[:a] + src[a:b].replace(anchor, "", 1) + src[b:]
     with pytest.raises(SystemExit, match=fn):
         sp.instrument(broken)
+
+
+def test_estep_probes_match_the_current_kernel():
+    """td_estep, through the same ``instrument``: the clock starts once,
+    each of the three barriers of its position loop gets its block probe,
+    and a source without any one of its anchors is refused."""
+    src = open(os.path.join(os.path.dirname(_SRC), "estep.cu")).read()
+    assert "TD_" not in src and "clock64" not in src
+    text = sp.instrument(src, sp.ESTEP_PROBES)
+    blk = [int(k) for k in re.findall(r"TD_BLK\((\d+)\)\n", text)]
+    assert blk == list(range(len(sp.ESTEP_PROBES["blk"])))
+    assert text.count("TD_BEGIN\n") == 1
+    for anchor, _ in dict(sp.ESTEP_PROBES["edits"])["estep_kernel"]:
+        with pytest.raises(SystemExit, match="estep_kernel"):
+            sp.instrument(src.replace(anchor, "", 1), sp.ESTEP_PROBES)
