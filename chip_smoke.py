@@ -67,7 +67,9 @@ Phases, each fatal on failure (no phase catches its own error):
    f. training (``train``): the Baum-Welch E-step
       (``parallel/mesh.py:_expected_lattice_counts``: ``td_estep`` reading
       K1's stack) on the kernels phase's reads of the flagship and the
-      plate: ``td_estep``'s CT and E against its plain version on the same
+      plate: ``td_estep``'s geometry (its cluster size C, reads a tile R,
+      shared bytes a block and clusters launched), its CT and E against its
+      plain version on the same
       CUDA stack (rtol 1e-4, atol 1e-6) and a second launch's bits against
       the first's, its time and the plain version's beside K1's and its
       bound, K1's whole output (the
@@ -76,7 +78,10 @@ Phases, each fatal on failure (no phase catches its own error):
       the card's stack and, apart, fed the stack of K1's plain version run
       on the host (first 2,048 reads, rtol 1e-4, atol 1e-6: K1 and the
       E-step held together), E.sum and CT.sum against the bases scored
-      (1e-4), 4 shards on the card against 1 (rtol 1e-5, atol 1e-6); then
+      (1e-4), 4 shards on the card against 1 (rtol 1e-5, atol 1e-6); the
+      plate + spacer (S = 2115) the same way but for the host, shard and
+      EM checks, over 4,096 reads it can emit (its barcode, the spacer and
+      up to 44nt, 160-192nt: shorter reads have no path); then
       one EM iteration over 1M generated flagship reads
       (``DistributedTrainer.expected_segment_counts``, ``reestimate``):
       its wall and split (K1, E-step, host mapping, reestimate), K1 and
@@ -1367,6 +1372,84 @@ def estep_against_plain(tag: str, tab: dict, seqs, lens, stack, got) -> dict:
             "plain_ms": plain_ms}
 
 
+def estep_geometry(tag: str, tab: dict, device) -> dict:
+    """``td_estep``'s geometry for ``tab`` on ``device`` (``estep.launch_plan``),
+    printed: the cluster size C, the reads of a tile R, the shared bytes of a
+    block (dynamic, and the static part's bound) and the clusters launched."""
+    from tagdust_tpu_torch.engine import estep
+
+    g = estep.launch_plan(tab, device)
+    print(f"[{tag}] td_estep geometry: C={g['C']} blocks a cluster, R={g['R']} reads "
+          f"a tile, {g['smem']} bytes of dynamic shared memory a block (static <= "
+          f"{estep.STATIC_SMEM}), {g['clusters']} clusters launched "
+          f"({g['clusters'] * g['C']} blocks); states a block "
+          f"{np.diff(g['t0']).tolist()}", flush=True)
+    return {k: g[k] for k in ("C", "R", "smem", "clusters")}
+
+
+def spacer_reads(n: int, seed: int, barcodes, insert: str, lengths: tuple) -> tuple:
+    """(seqs [n, lengths[1]] base codes, lens int32): a barcode of the set
+    (5% substitutions), then ``insert`` (2% substitutions), then random
+    bases, ``lengths`` in all: reads that the barcodes + spacer lattice can
+    emit (a read shorter than its barcode and spacer cannot be)."""
+    rng = np.random.default_rng(seed)
+    Lp = lengths[1]
+    seqs = rng.integers(0, 4, (n, Lp)).astype(np.uint8)
+    codes = np.zeros(256, dtype=np.uint8)
+    codes[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
+    head = np.stack([codes[np.frombuffer((b + insert).encode(), np.uint8)]
+                     for b in barcodes])[rng.integers(0, len(barcodes), n)]
+    nb = len(barcodes[0])
+    noise = rng.random(head.shape) < np.where(np.arange(head.shape[1]) < nb,
+                                              BARCODE_SUB, 0.02)
+    head[noise] = rng.integers(0, 4, int(noise.sum()))
+    seqs[:, : head.shape[1]] = head
+    return seqs, rng.integers(lengths[0], Lp + 1, n).astype(np.int32)
+
+
+# the plate + spacer E-step's reads: the barcode, the 140nt spacer and up
+# to 44nt of insert
+SPACER_READS = 4096
+SPACER_LENGTHS = (160, 192)
+
+
+def train_estep_only(name: str, eng, barcodes, insert: str, seed: int,
+                     B: int = SPACER_READS, lengths: tuple = SPACER_LENGTHS) -> dict:
+    """The E-step alone on a lattice that no training path runs (the plate +
+    spacer), over reads it can emit (``spacer_reads``): its geometry,
+    ``td_estep`` against its plain version on the same CUDA stack and
+    against a second launch, its time and its bound; no host, shard or EM
+    checks.  |E.sum - n| / n is printed, not gated: over 192 positions of
+    this lattice the f32 recurrences (K1's and the E-step's, the plain
+    versions' too) lose about 1e-4 of the mass."""
+    import torch
+
+    from tagdust_tpu_torch.parallel import mesh
+
+    tag = f"train {name} S={eng.lat.S}"
+    seqs_np, lens_np = spacer_reads(B, seed, barcodes, insert, lengths)
+    seqs, lens = torch.from_numpy(seqs_np).cuda(), torch.from_numpy(lens_np).cuda()
+    stack = eng.scorer.backward(seqs, lens)
+    tab = mesh.count_tables(eng.lat, "cuda")
+    geo = estep_geometry(tag, tab, seqs.device)
+    CT, E, n = mesh._expected_lattice_counts(eng, seqs, lens, stack=stack, tables=tab)
+    n = int(n)
+    kern = estep_against_plain(tag, tab, seqs, lens, stack, (CT, E))
+    bd = estep_bound(eng, seqs, lens)
+    e_mass = abs(float(E.double().sum()) - n) / n
+    ct_mass = abs(float(CT.double().sum()) - n) / n
+    print(f"[{tag}] B={B}, Lp={lengths[1]}, lengths {lengths[0]}-{lengths[1]}: E-step "
+          f"(td_estep) {kern['ms']:.3f} ms, its plain version {kern['plain_ms']:.3f} ms, "
+          f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}); |E.sum - n| / n "
+          f"{e_mass:.3g}, |CT.sum - n| / n {ct_mass:.3g} (n {n})", flush=True)
+    del stack
+    torch.cuda.empty_cache()
+    return {"estep_ms": kern["ms"], "estep_plain_ms": kern["plain_ms"],
+            "estep_max_abs_err": kern["max_abs_err"], "estep_err": kern["err"],
+            "estep_err_E": kern["err_E"], **bd, "e_mass": e_mass, "ct_mass": ct_mass,
+            "geometry": geo}
+
+
 def rel_err(a, b, atol: float, rtol: float) -> tuple:
     """(max |a-b| / (atol + rtol |b|), ok): ok when that is <= 1."""
     a = np.asarray(a, np.float64)
@@ -1398,9 +1481,10 @@ def train_lattice(name: str, eng, seed: int, B: int = 16384, Lp: int = 64,
     sc = eng.scorer
     stack = sc.backward(seqs, lens)
     tab = mesh.count_tables(eng.lat, device)
+    cuda = device == "cuda"
+    geo = estep_geometry(tag, tab, seqs.device) if cuda else None
     CT, E, n = mesh._expected_lattice_counts(eng, seqs, lens, stack=stack, tables=tab)
     n = int(n)
-    cuda = device == "cuda"
     k1_ms = timed(lambda: sc.backward(seqs, lens)) if cuda else float("nan")
     kern = estep_against_plain(tag, tab, seqs, lens, stack, (CT, E))
     bd = estep_bound(eng, seqs, lens)
@@ -1456,13 +1540,14 @@ def train_lattice(name: str, eng, seed: int, B: int = 16384, Lp: int = 64,
             "plain_err_E": plain[1][0], "k1_stack_err": k1["bstack"],
             "k1_log_err": max(k1["blstack"], k1["logpb"]),
             "e_mass": e_mass, "ct_mass": ct_mass,
-            "shard_err": shards[0][0], "shard_err_E": shards[1][0]}
+            "shard_err": shards[0][0], "shard_err_E": shards[1][0], "geometry": geo}
 
 
 def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
                 device: str = "cuda", **shape) -> dict:
     """The training path: ``train_lattice`` on the flagship and the plate,
-    then one EM iteration over ``n_reads`` generated flagship reads
+    ``train_estep_only`` on the plate + spacer (on the card), then one EM
+    iteration over ``n_reads`` generated flagship reads
     (``DistributedTrainer.expected_segment_counts``, then ``reestimate``)
     with the launch counts set to 0 just before it and read just after:
     K1 must have launched and no plain version run on CUDA tensors, and
@@ -1474,6 +1559,7 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     from tagdust_tpu_torch.engine import fused_kernel, scan
     from tagdust_tpu_torch.engine.cuda import CudaEngine
     from tagdust_tpu_torch.engine.train import reestimate
+    from tagdust_tpu_torch.flagship import spacer
     from tagdust_tpu_torch.parallel import mesh
     from tagdust_tpu_torch.parallel.mesh import DistributedTrainer
 
@@ -1484,6 +1570,11 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
         del eng
         if device == "cuda":
             torch.cuda.empty_cache()
+    if device == "cuda":
+        eng = CudaEngine(library_model(sets["plate"], spacer=spacer()), device)
+        out["spacer"] = train_estep_only("spacer", eng, sets["plate"], spacer(), seed)
+        del eng
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     seqs, lens = read_codes(n_reads, seed + 5, sets["flagship"])

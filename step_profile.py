@@ -6,8 +6,8 @@ of the E-step kernel ``td_estep``, goes, in SM cycles, on one CUDA card.
 
 (models: 8, flagship, 48, plate, and R:N, on which only K1 runs.  With
 ``--estep``: ``td_estep`` on the models' K1 stacks instead, from a copy of
-``csrc/estep.cu`` probed the same way, block parts only, per (block,
-tile-position).)
+``csrc/estep.cu`` probed the same way, block parts only, per
+CTA-tile-position, and its final flush per block.)
 
 Builds a copy of ``tagdust_tpu_torch/engine/csrc/fused_dp.cu`` with
 ``clock64()`` probes written into it (under ``build/step_profile/``; the
@@ -28,9 +28,9 @@ whose results go unused (``red`` instructions), a few per warp and
 position.  The instrumented kernel's time (CUDA events, median of 3) is
 printed beside the sum of its parts; the card's name, power limit and
 highest SM clock close the output.  The probes are placed by the text of
-the source: ``PROBES`` (``ESTEP_PROBES`` for ``td_estep``) names the lines
-that anchor them, and the script fails on a source whose anchors it does
-not find.
+the source: ``PROBES`` names the lines of ``fused_dp.cu`` that anchor them,
+``ESTEP_PROBES`` the ``/* TD_PROBE(name) */`` comments of ``estep.cu``, and
+the script fails on a source whose anchors it does not find.
 """
 
 from __future__ import annotations
@@ -137,22 +137,25 @@ PROBES = {
 }
 
 
-# td_estep: the same kind of edits in estep_kernel, a block probe after each
-# barrier of its position loop (each anchored by the part that follows it),
-# and the names of its block parts
+# td_estep: its marker comments (``/* TD_PROBE(name) */``, one after each
+# barrier of the position loop, one at the top and one after the final
+# flush) replaced by the same probes; the block parts per CTA-tile-position
+# (the first position's grouping holds the tile's start and the launch's
+# table load), then the flush, once per block
 ESTEP_PROBES = {
     "edits": [
         ("estep_kernel", [
-            ("  const int tid = threadIdx.x,", "  TD_BEGIN\n  const int tid = threadIdx.x,"),
-            ("      __syncthreads();\n\n      // B: the step",
-             "      __syncthreads();\n      TD_BLK(0)\n\n      // B: the step"),
-            ("      __syncthreads();\n\n      // C: rescale",
-             "      __syncthreads();\n      TD_BLK(1)\n\n      // C: rescale"),
-            ("      __syncthreads();\n    }\n    __syncthreads();  // every thread",
-             "      __syncthreads();\n      TD_BLK(2)\n    }\n    __syncthreads();  // every thread"),
+            ("/* TD_PROBE(begin) */", "TD_BEGIN"),
+            ("/* TD_PROBE(group) */", "TD_BLK(0)"),
+            ("/* TD_PROBE(step) */", "TD_BLK(1)"),
+            ("/* TD_PROBE(max) */", "TD_BLK(2)"),
+            ("/* TD_PROBE(rescale) */", "TD_BLK(3)"),
+            ("/* TD_PROBE(flush) */", "TD_BLK(4)"),
         ]),
     ],
-    "blk": ["A: reads by base, weights", "B: step and mass", "C: rescale"],
+    "blk": ["A: grouping, stack rows", "B: step and mass",
+            "M: row max, cluster barrier", "C: rescale, cluster barrier"],
+    "once": ["final flush"],
 }
 
 
@@ -232,8 +235,9 @@ def build_library(src_text: str, source: str = SOURCE) -> str:
 
 
 def profile_estep(L, name: str, seqs, lens, buf) -> None:
-    """``td_estep`` on model ``name``'s K1 stack: its time (CUDA events,
-    median of 3) and its block parts per (block, tile-position)."""
+    """``td_estep`` on model ``name``'s K1 stack: its geometry, its time (CUDA
+    events, median of 3) and its block parts per CTA-tile-position, the
+    flush per block."""
     import torch
 
     from tagdust_tpu_torch.engine import estep
@@ -250,21 +254,26 @@ def profile_estep(L, name: str, seqs, lens, buf) -> None:
     if L.td_prof_read(ctypes.addressof(buf)):
         raise SystemExit("step_profile: reading the probes' sums failed")
     v = np.frombuffer(buf, dtype=np.uint64).astype(np.float64)
-    rt = L.td_estep_reads_per_tile(eng.lat.S)
+    g = estep.launch_plan(tab, seqs.device)
+    R, C = g["R"], g["C"]
     B = seqs.shape[0]
-    tiles = -(-B // rt)
-    # each tile walks the positions of its longest read
-    ln = np.zeros(tiles * rt, dtype=np.int64)
+    tiles = -(-B // R)
+    # each tile walks the positions of its longest read, in each of C blocks
+    ln = np.zeros(tiles * R, dtype=np.int64)
     ln[:B] = lens.cpu().numpy()
-    per = float(ln.reshape(tiles, rt).max(axis=1).sum())
+    per = C * float(ln.reshape(tiles, R).max(axis=1).sum())
     parts = ESTEP_PROBES["blk"]
     blk = v[: len(parts)] / per
     total = blk.sum()
-    print(f"[{name} S={eng.lat.S}] td_estep: {rt} reads per tile, {tiles} tiles, "
-          f"probed kernel {ms:.3f} ms; cycles per (block, tile-position), "
-          f"block parts summing to {total:.0f}:", flush=True)
+    print(f"[{name} S={eng.lat.S}] td_estep: clusters of C={C} blocks, {R} reads a "
+          f"tile, {g['smem']} bytes of dynamic shared memory a block, "
+          f"{g['clusters']} clusters, {tiles} tiles; probed kernel {ms:.3f} ms; "
+          f"cycles per CTA-tile-position, block parts summing to {total:.0f}:",
+          flush=True)
     for k, p in enumerate(parts):
         print(f"    {p:40s} {blk[k]:10.0f}  {100 * blk[k] / total:5.1f}%")
+    for k, p in enumerate(ESTEP_PROBES["once"], start=len(parts)):
+        print(f"    {p + ' (per block)':40s} {v[k] / v[-1]:10.0f}")
     del stack
     torch.cuda.empty_cache()
 

@@ -111,11 +111,12 @@ def lib():
     L.td_tb.argtypes = [P, P, P] + [I] * 5 + [P]
     L.td_blocks_per_sm.argtypes = [I] * 10 + [P, I]
     L.td_myers.argtypes = [P, P, I, P, I, P, P, I, P]
-    L.td_estep_reads_per_tile.argtypes = [I]
-    L.td_estep.argtypes = [P] * 14 + [I] * 7 + [P]
+    L.td_estep_optin.argtypes = []
+    L.td_estep_clusters.argtypes = [I, I]
+    L.td_estep.argtypes = [P] * 27 + [I] * 11 + [P]
     for fn in (L.td_reads_per_block, L.td_bwd, L.td_bwd_score, L.td_fwd, L.td_tb,
-               L.td_blocks_per_sm, L.td_myers, L.td_estep_reads_per_tile,
-               L.td_estep):
+               L.td_blocks_per_sm, L.td_myers, L.td_estep_optin,
+               L.td_estep_clusters, L.td_estep):
         fn.restype = I
     _lib = L
     return L

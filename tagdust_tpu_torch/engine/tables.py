@@ -30,7 +30,9 @@ kernel copies a prefix into shared memory.  The grouped (block-banded)
 step mode has its own tables, built from
 ``lattice.grouped_step_decomposition`` by ``grouped_tables``.  The
 Baum-Welch E-step kernel (``td_estep``) reads the non-zero entries of each
-base's step matrix grouped by destination (``estep_tables``).
+base's step matrix grouped by destination (``estep_tables``), split over
+the blocks of a thread block cluster by destination state
+(``estep_slices``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ MAX_SEGMENTS = 128
 # an output of the dense step with more inputs than this goes to a warp of
 # its own (sliced_tables)
 HEAVY_INPUTS = 32
+# an item of td_estep's entry table with more entries than this goes to a
+# warp of its own, a lane a read (estep_slices)
+HEAVY_ENTRIES = 32
 # the tables a kernel reads from its blob, in the order of the word offsets
 # of ``staged_tables`` (struct Staged of csrc/fused_dp.cu): K2's label-DP
 # part, then the dense step's heavy part and light part; a kernel stages
@@ -271,6 +276,152 @@ def estep_tables(A: np.ndarray) -> dict:
     return {"dst_ptr": np.asarray(dst_ptr, np.int32), "dst": i32(dst),
             "ent_ptr": i32(ent_ptr), "src": i32(src),
             "val": np.concatenate(val).astype(np.float32), "flat": i32(flat)}
+
+
+def slice_bounds(weight: np.ndarray, C: int) -> np.ndarray:
+    """[C+1] int32: C contiguous ranges ``[t_j, t_{j+1})`` of the states
+    balanced by ``weight`` [S] (the shared bytes of each state): each bound
+    the state whose cumulative weight is nearest ``j sum / C``, at least one
+    state past the last, so that each range's weight lies within the
+    largest weight of one state of ``sum / C``."""
+    S = weight.size
+    cum = np.concatenate([[0.0], np.cumsum(weight, dtype=np.float64)])
+    bounds = [0]
+    for j in range(1, C):
+        target = j * cum[-1] / C
+        t = int(np.searchsorted(cum, target))
+        if t > 0 and target - cum[t - 1] <= cum[t] - target:
+            t -= 1
+        bounds.append(min(max(t, bounds[-1] + 1), S - (C - j)))
+    return np.asarray(bounds + [S], np.int32)
+
+
+def carry_offset(row, P: int):
+    """The word offset of carry row ``row`` in ``td_estep``'s shared
+    memory: rows of P floats (a read each), and one padding word after each
+    32 rows, so that rows a barcode apart fall in distinct banks
+    (csrc/estep.cu:cofs)."""
+    return row * P + (row >> 5)
+
+
+def estep_slices(et: dict, S: int, t0: np.ndarray, P: int) -> dict:
+    """``estep_tables`` ``et`` split over the blocks of a thread block
+    cluster of ``td_estep`` (csrc/estep.cu), rows of P floats: block j owns
+    the states ``t0[j]:t0[j+1]``, their carries, and every item ``(c, t)``
+    with t in that range.  Per block, per base, one item for every state of
+    the range (an empty one where A[c] has no entry into it, so that the
+    step writes every cell of the next carry), by entry count descending
+    (ascending state among equals), so the lanes of a warp take items of
+    about one length; the items of more than ``HEAVY_ENTRIES`` entries,
+    a warp's each, come first.  A block's carry has a row for each of its
+    states, then a halo row for each state of another block that one of its
+    entries reads; the owner of that state pushes its value there after
+    each rescale, so the step reads only its own shared memory.
+
+    * ``t0`` [C+1];
+    * ``ent_off`` / ``item_off`` [C+1]: block j's entries and items;
+    * ``ibase`` [C, 6]: base c's items of block j are ``ibase[j, c]`` to
+      ``ibase[j, c+1]``, counted from ``item_off[j]``; ``nheavy`` [C, 5]:
+      the heavy ones among them;
+    * ``ient`` [items + C]: block j's ``ni_j + 1`` entry offsets, counted
+      from ``ent_off[j]``; ``idst`` [items]: each item's state, counted from
+      ``t0[j]``;
+    * ``ekey`` [nnz]: each entry's source row (``carry_offset``, its own
+      row or its halo row in the entry's block, < 2^16), ``eval`` [nnz]
+      f32: ``A[c][s, t]``; ``eidx`` [nnz]: the entry's index in ``et``;
+    * ``halo_off`` [C+1] / ``halo`` [rows]: block j's halo rows, each a
+      state of another block, ascending;
+    * ``push_off`` [C+1] / ``push`` [pushes, 2] int32: block j's pushes,
+      (the word offset of its row of the state, ``(rank << 24) |`` the word
+      offset of the halo row in block ``rank``).
+
+    Within an item the entries keep ``et``'s ascending source."""
+    t0 = np.asarray(t0, np.int32)
+    C = t0.size - 1
+    width = np.diff(t0)
+    rank = np.repeat(np.arange(C), width)  # [S] the block of each state
+    cnt = np.diff(et["ent_ptr"])
+    dst_of = np.repeat(et["dst"], cnt)
+    halos = [np.unique(et["src"][(rank[dst_of] == j) & (rank[et["src"]] != j)])
+             for j in range(C)]
+    eidx, ient, idst, ibase, nheavy, rows = [], [], [], [], [], []
+    for j in range(C):
+        a, b = int(t0[j]), int(t0[j + 1])
+        row = np.full(S, -1, np.int64)  # the row of each state block j reads
+        row[a:b] = np.arange(b - a)
+        row[halos[j]] = b - a + np.arange(halos[j].size)
+        ib, starts, first_entry = [0], [0], len(eidx)
+        for c in range(5):
+            # every state of the range an item, with et's entries into it
+            items = np.arange(et["dst_ptr"][c], et["dst_ptr"][c + 1])
+            items = items[(et["dst"][items] >= a) & (et["dst"][items] < b)]
+            n = np.zeros(b - a, np.int64)
+            first = np.zeros(b - a, np.int64)
+            n[et["dst"][items] - a] = cnt[items]
+            first[et["dst"][items] - a] = et["ent_ptr"][items]
+            order = np.lexsort((np.arange(b - a), -n))
+            idst.append(order)
+            eidx += [np.arange(first[t], first[t] + n[t]) for t in order]
+            starts += list(starts[-1] + np.cumsum(n[order]))
+            ib.append(ib[-1] + b - a)
+            nheavy.append(int((n > HEAVY_ENTRIES).sum()))
+        e = (np.concatenate(eidx[first_entry:]) if len(eidx) > first_entry
+             else np.zeros(0, np.int64))
+        rows.append(row[et["src"][e]])
+        ient.append(starts)
+        ibase.append(ib)
+    push = [[] for _ in range(C)]
+    for q in range(C):
+        for h, st in enumerate(halos[q]):
+            j = int(rank[st])
+            push[j].append((carry_offset(int(st - t0[j]), P),
+                            (q << 24) | carry_offset(int(width[q]) + h, P)))
+    eidx = np.concatenate(eidx).astype(np.int32)
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    cum = lambda n: i32(np.concatenate([[0], np.cumsum(n)]))  # noqa: E731
+    return {"t0": t0, "ent_off": cum([s[-1] for s in ient]),
+            "item_off": cum(width * 5), "ibase": i32(ibase),
+            "nheavy": i32(nheavy).reshape(C, 5), "ient": i32(np.concatenate(ient)),
+            "idst": i32(np.concatenate(idst)),
+            "ekey": i32(carry_offset(np.concatenate(rows), P)), "eval": et["val"][eidx],
+            "eidx": eidx, "halo_off": cum([h.size for h in halos]),
+            "halo": i32(np.concatenate(halos)),
+            "push_off": cum([len(x) for x in push]),
+            "push": i32([x for xs in push for x in xs]).reshape(-1, 2)}
+
+
+def estep_state_bytes(et: dict, S: int, P: int) -> np.ndarray:
+    """[S] the shared bytes that each state costs the block of ``td_estep``
+    that owns it at rows of P floats: its two carry rows, its five items (a
+    16-bit entry offset and state each) and the entries into it (an f64
+    sum, an f32 value and a 16-bit source row each).  A block adds its halo
+    rows, pushes and padding (``estep_block_bytes``)."""
+    n = np.bincount(et["dst"], weights=np.diff(et["ent_ptr"]), minlength=S)
+    return 8 * P + 20 + 14 * n.astype(np.int64)
+
+
+def estep_block_bytes(et: dict, S: int, t0: np.ndarray, P: int) -> np.ndarray:
+    """[C] the dynamic shared bytes of each block of ``td_estep`` for the
+    split ``t0`` of ``estep_tables`` ``et`` at rows of P floats, as
+    csrc/estep.cu lays out ``estep_slices``: the carry (its rows and halo
+    rows) and the next carry (its rows), each with its padding words,
+    rounded up to 8 bytes; per entry its f64 sum, its f32 value and its
+    16-bit source row; per push 8
+    bytes; per item (5 a state) a 16-bit entry offset and a 16-bit state,
+    and one offset more."""
+    t0 = np.asarray(t0)
+    width = np.diff(t0)
+    rank = np.repeat(np.arange(width.size), width)
+    dst_of = np.repeat(et["dst"], np.diff(et["ent_ptr"]))
+    src = et["src"]
+    ne = np.bincount(rank[dst_of], minlength=width.size)
+    # (reader, state) pairs of the halos, each a halo row and a push
+    far = np.unique(rank[dst_of] * S + src)
+    far = far[rank[far % S] != far // S]
+    nh = np.bincount(far // S, minlength=width.size)
+    npush = np.bincount(rank[far % S], minlength=width.size)
+    words = carry_offset(width + nh - 1, P) + carry_offset(width - 1, P) + 2 * P
+    return 8 * ((words + 1) // 2) + 14 * ne + 8 * npush + 20 * width + 2
 
 
 def label_tables(tmat: np.ndarray) -> dict:

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..engine import estep
 from ..engine.cuda import BatchResult, _indexed
 from ..engine.estep import forward_counts
 from ..engine.tables import estep_tables
@@ -184,8 +185,8 @@ def estep_bytes(engine, B: int, Lp: int) -> int:
     """Device bytes of one E-step over B reads padded to Lp on the engine's
     route.  Both: K1's stack and log scales ((Lp+1) * (S+1) * 4 a read),
     logP and the reads with their lengths.  The kernel (a card engine):
-    its f64 partials, one row of the entries a block (an SM), the mass and
-    E.  The plain version (the CPU): the reads' codes and order by base
+    its f64 partials, one row of the entries a cluster it launches
+    (``estep.clusters``), the mass and E.  The plain version (the CPU): the reads' codes and order by base
     (int64), the carries and scales, and the worst case of the per-base
     temporaries (every read under the base with the most entries, nnz): the
     gathered flows, backward values and their product (3 nnz floats), and
@@ -195,8 +196,8 @@ def estep_bytes(engine, B: int, Lp: int) -> int:
     nnz = [int(np.count_nonzero(engine.lat.A[c])) for c in range(5)]
     per_read = (Lp + 1) * (S + 1) * 4 + 4 + Lp + 4
     if engine.device.type == "cuda":
-        sms = torch.cuda.get_device_properties(engine.device).multi_processor_count
-        return B * per_read + 8 * sms * sum(nnz) + 4 * sum(nnz) + 4 * 5 * S
+        rows = estep.clusters(engine)
+        return B * per_read + 8 * rows * sum(nnz) + 4 * sum(nnz) + 4 * 5 * S
     per_read += 16 * Lp + 4 * (2 * S + 4) + 4 * (3 * max(nnz) + 4 * S)
     return B * per_read
 

@@ -1,8 +1,9 @@
 """``step_profile.py`` places its ``clock64`` probes in a copy of the dense
-kernels' source, and of ``td_estep``'s, by text anchors.  The probed build
-runs only on a card, so these tests hold the anchors to the source as it stands: every probe is
-placed, each barrier of the position loops gets its block probe, the source
-itself carries no probe, and a source that has lost an anchor is refused."""
+kernels' source by text anchors, and in ``td_estep``'s by its marker
+comments.  The probed build runs only on a card, so these tests hold the
+anchors to the source as it stands: every probe is placed, each barrier of
+the position loops gets its block probe, the source itself carries no
+probe, and a source that has lost an anchor is refused."""
 
 import os
 import re
@@ -43,15 +44,17 @@ def test_a_source_without_an_anchor_is_refused(fn):
 
 
 def test_estep_probes_match_the_current_kernel():
-    """td_estep, through the same ``instrument``: the clock starts once,
-    each of the three barriers of its position loop gets its block probe,
-    and a source without any one of its anchors is refused."""
+    """td_estep, through the same ``instrument``: the clock starts once, each
+    of its marker comments (after every barrier of its position loop and
+    after the final flush) becomes its block probe, in order, no marker is
+    left, and a source without any one of its markers is refused."""
     src = open(os.path.join(os.path.dirname(_SRC), "estep.cu")).read()
-    assert "TD_" not in src and "clock64" not in src
+    assert "clock64" not in src and "TD_BLK" not in src and "TD_BEGIN" not in src
     text = sp.instrument(src, sp.ESTEP_PROBES)
     blk = [int(k) for k in re.findall(r"TD_BLK\((\d+)\)\n", text)]
-    assert blk == list(range(len(sp.ESTEP_PROBES["blk"])))
-    assert text.count("TD_BEGIN\n") == 1
+    names = sp.ESTEP_PROBES["blk"] + sp.ESTEP_PROBES["once"]
+    assert blk == list(range(len(names)))
+    assert text.count("TD_BEGIN\n") == 1 and "/* TD_PROBE" not in text
     for anchor, _ in dict(sp.ESTEP_PROBES["edits"])["estep_kernel"]:
         with pytest.raises(SystemExit, match="estep_kernel"):
             sp.instrument(src.replace(anchor, "", 1), sp.ESTEP_PROBES)
