@@ -112,6 +112,21 @@ Phases, each fatal on failure (no phase catches its own error):
       output bytes, >= 3 windows through the shards, K1-K3 launched, and
       the card's peak allocation above what the run found allocated inside
       ``STACK_BYTES``;
+   i. ``entry``: the entry points and the benches
+      (``tagdust_tpu_torch/entry.py``, ``tagdust_tpu_torch/bench/``):
+      ``entry()`` on the card against ``entry(device="cpu")`` (labels equal,
+      f within 1e-4, Q within 1e-2); ``dryrun_multichip(2)`` (K1-K3 and
+      ``td_estep`` launched); ``bench.kernels`` at full size (its JSON line,
+      beside the kernels phase's flagship B / (K1+K2+K3)); ``bench.e2e``
+      over 200,000 simreads reads (made by a child process started with the
+      script), one trial after the warm-up, at ``-Q 10`` and at default
+      flags; ``bench.multichip`` at 1 and 2 shards; the A/B switches: the
+      decided rows and ``run_batch_fused``'s Q and labels at B = 16,384 bit
+      for bit equal under ``TAGDUST_TPU_NIBBLE=0`` and ``1``, and the
+      flagship CLI over the 200,000 reads at ``-Q 10`` under
+      ``TAGDUST_TPU_DEVICE_DECISIONS=0`` (label-carrying rows, the host
+      extractor) with the decided run's output sha256s; every step but the
+      first with no plain version on CUDA tensors;
    a-e each print their step mode and the launches of each kernel; a path
    that streams in fewer than 3 windows, or that re-labelled a chunk
    one-shot after a failed window, fails;
@@ -143,6 +158,7 @@ plate, ``estep_bound``); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -190,7 +206,7 @@ F32_RATE = 67e12
 # reads of the 8-barcode run (5b)
 SMALL_READS = 200_000
 PHASES = ("kernels", "myers", "digest", "gate", "flagship", "8-plex", "arch", "ref", "sub",
-          "train", "multihost", "mesh", "cross", "long")
+          "train", "multihost", "mesh", "entry", "cross", "long")
 
 
 def fail(msg: str) -> None:
@@ -1944,6 +1960,207 @@ def phase_mesh(sets: dict, single: dict, seed: int, tmp: str) -> dict:
     return dict(res, sharded_windows=sharded[0], peak_bytes=peak, trainer=trainer)
 
 
+# the entry phase: the entry points (tagdust_tpu_torch/entry.py) and the
+# benches (tagdust_tpu_torch/bench/); reads of the e2e bench's input,
+# made by cli.simreads in a child process started with the script
+ENTRY_E2E_READS = 200_000
+ENTRY_F_ATOL = 1e-4
+ENTRY_Q_ATOL = 1e-2
+
+
+def start_e2e_input() -> subprocess.Popen:
+    """Start making the e2e bench's cached input (``bench.e2e
+    --make-input``: ``cli.simreads`` of ``ENTRY_E2E_READS`` reads, a
+    single-threaded host loop) in a child process, so that it overlaps the
+    phases before the entry phase."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tagdust_tpu_torch.bench.e2e", "--make-input",
+         "--reads", str(ENTRY_E2E_READS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """The environment with ``values`` set, restored afterwards."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def counted(fn):
+    """(``fn()``, its kernel launches, its plain calls on CUDA tensors), the
+    counts set to 0 just before and read just after."""
+    from tagdust_tpu_torch.engine import fused_kernel, scan
+
+    for k in fused_kernel.LAUNCHES:
+        fused_kernel.LAUNCHES[k] = 0
+    scan.PLAIN_CUDA_CALLS["count"] = 0
+    out = fn()
+    return out, dict(fused_kernel.LAUNCHES), scan.PLAIN_CUDA_CALLS["count"]
+
+
+def entry_against_plain(device: str = "cuda") -> dict:
+    """``entry()`` on ``device`` against ``entry(device="cpu")`` (the plain
+    versions) on the same inputs: labels equal, f within ENTRY_F_ATOL, Q
+    within ENTRY_Q_ATOL."""
+    import torch
+
+    from tagdust_tpu_torch.entry import entry
+
+    fn, args = entry(device)
+    got = [t.cpu() for t in fn(*args)]
+    fn, args = entry("cpu")
+    ref = fn(*args)
+    f_err, f_ok = close(got[0], ref[0], ENTRY_F_ATOL, 0.0)
+    q_err, q_ok = close(got[4], ref[4], ENTRY_Q_ATOL, 0.0)
+    same = torch.equal(got[3], ref[3])
+    print(f"[entry] entry() on {device} against the plain versions, B={args[0].shape[0]}, "
+          f"L={args[0].shape[1]}: labels {'equal' if same else 'DIFFER'}, max |f| "
+          f"{f_err:.3g} (atol {ENTRY_F_ATOL}), max |Q| {q_err:.3g} (atol {ENTRY_Q_ATOL})",
+          flush=True)
+    if not (same and f_ok and q_ok):
+        fail("entry: the scoring step disagrees with its plain versions")
+    return {"f_err": f_err, "q_err": q_err}
+
+
+def entry_nibble_rows(eng, seed: int, B: int = 16384, Lp: int = 64) -> None:
+    """``dispatch_decided``'s rows, and ``run_batch_fused``'s Q and labels, bit
+    for bit equal under TAGDUST_TPU_NIBBLE=1 and 0 on seeded reads with N
+    codes."""
+    import torch
+
+    rng = np.random.default_rng(seed + 5)
+    seqs = rng.integers(0, 5, (B, Lp)).astype(np.uint8)
+    lens = rng.integers(Lp * 5 // 8, Lp + 1, B).astype(np.int32)  # 40-64 at 64
+    thr32 = eng.threshold_f32_ceil(MESH_Q)
+    rows, fused = {}, {}
+    for nib in ("1", "0"):
+        with environ(TAGDUST_TPU_NIBBLE=nib):
+            rows[nib] = eng.dispatch_decided(seqs, lens, thr32, MESH_MINLEN).cpu()
+            res = eng.run_batch_fused(seqs, lens)
+            fused[nib] = (res.mapq.tobytes(), res.labels.tobytes())
+    print(f"[entry] decided rows at B={B}, Lp={Lp} under TAGDUST_TPU_NIBBLE=1 / 0: "
+          f"{digest(rows['1'])[:16]} / {digest(rows['0'])[:16]}; run_batch_fused's Q "
+          f"and labels {'equal' if fused['1'] == fused['0'] else 'DIFFER'}", flush=True)
+    if not torch.equal(rows["1"], rows["0"]) or fused["1"] != fused["0"]:
+        fail("entry: the nibble-packed upload changed the rows")
+
+
+def entry_decisions(fq: str, bcs, tmp: str, device: str = "cuda") -> dict:
+    """The flagship library over ``fq`` through the CLI at ``-Q 10``, decided
+    (the default) and under TAGDUST_TPU_DEVICE_DECISIONS=0: every output file
+    with the decided run's sha256, the first run's windows all decided rows
+    and the second's all label-carrying rows.  -> the two runs' launches."""
+    from tagdust_tpu_torch.engine.cuda import CudaEngine
+
+    calls = {"dispatch_decided": 0, "dispatch_packed": 0}
+    real = {name: getattr(CudaEngine, name) for name in calls}
+
+    def spy(name):
+        def call(self, *a, **k):
+            calls[name] += 1
+            return real[name](self, *a, **k)
+
+        return call
+
+    expect = path_kernels("entry", bcs) if device == "cuda" else []
+    engine = "cuda" if device == "cuda" else "torch"
+    outs, runs = {}, {}
+    for name in calls:
+        setattr(CudaEngine, name, spy(name))
+    try:
+        for mode in ("1", "0"):
+            outs[mode] = os.path.join(tmp, f"entry_decisions{mode}")
+            for name in calls:
+                calls[name] = 0
+            with environ(TAGDUST_TPU_DEVICE_DECISIONS=mode):
+                runs[mode] = run_path(
+                    f"entry DEVICE_DECISIONS={mode}",
+                    ["-1", f"B:{','.join(bcs)}", "-2", "R:N", fq, "-Q", "10",
+                     "-engine", engine, "-o", outs[mode]], expect)
+            runs[mode]["calls"] = dict(calls)
+    finally:
+        for name, fn in real.items():
+            setattr(CudaEngine, name, fn)
+    print(f"[entry] windows decided / label-carrying: DEVICE_DECISIONS=1 "
+          f"{runs['1']['calls']}, =0 {runs['0']['calls']}; walls "
+          f"{runs['1']['wall_s']:.2f} / {runs['0']['wall_s']:.2f} s", flush=True)
+    if runs["1"]["calls"]["dispatch_packed"] or runs["0"]["calls"]["dispatch_decided"]:
+        fail("entry: TAGDUST_TPU_DEVICE_DECISIONS did not choose the rows")
+    files = same_outputs("entry DEVICE_DECISIONS=0", outs["1"], outs["0"])
+    print(f"[entry] {files} output files under DEVICE_DECISIONS=0 equal the decided "
+          "run's (sha256)", flush=True)
+    return runs
+
+
+def phase_entry(sets: dict, timing: dict, seed: int, tmp: str, maker) -> dict:
+    """The entry points and the benches on the card (each step
+    fatal): ``entry()`` against its plain versions; ``dryrun_multichip(2)``
+    with K1-K3 and ``td_estep`` launched and no plain version on CUDA
+    tensors; ``bench.kernels`` at full size beside the kernels phase's
+    flagship B / (K1+K2+K3); ``bench.e2e`` over ``ENTRY_E2E_READS`` reads,
+    one trial after the warm-up, at ``-Q 10`` and at default flags;
+    ``bench.multichip`` at 1 and 2 shards; the A/B switches
+    (``entry_nibble_rows``, ``entry_decisions``).  The launches of every
+    step but the first (a comparison with the plain versions) count."""
+    import torch
+
+    from tagdust_tpu_torch.bench import card, e2e, kernels, multichip
+    from tagdust_tpu_torch.engine.fused_kernel import LAUNCHES
+    from tagdust_tpu_torch.entry import dryrun_multichip, flagship_engine
+
+    t0 = time.perf_counter()
+    entry_against_plain()
+    launches = dict.fromkeys(LAUNCHES, 0)
+
+    def step(name: str, fn, need=()):
+        out, got, plain = counted(fn)
+        for k in launches:
+            launches[k] += got[k]
+        missing = [k for k in need if got[k] <= 0]
+        if missing or plain:
+            fail(f"entry {name}: kernels not launched {missing}, plain versions on "
+                 f"CUDA tensors {plain}")
+        return out
+
+    step("dryrun_multichip", lambda: dryrun_multichip(2), ("bwd", "fwd", "tb", "estep"))
+    rec = step("bench.kernels", kernels.measure, ("bwd", "fwd", "tb"))
+    print(json.dumps(rec), flush=True)
+    if all((k, "flagship") in timing for k in ("bwd", "fwd", "tb")):
+        ms = sum(timing[k, "flagship"]["ms"] for k in ("bwd", "fwd", "tb"))
+        print(f"[entry] bench.kernels {rec['value']:.0f} reads/s beside the kernels "
+              f"phase's flagship B / (K1+K2+K3) = {16384 / ms * 1e3:.0f} reads/s "
+              f"({ms:.3f} ms, lengths 40-64)", flush=True)
+    if maker.wait(timeout=600):
+        fail(f"entry: the e2e input was not made (exit {maker.returncode})")
+    fq = e2e.make_input(ENTRY_E2E_READS)
+    where = card(torch.device("cuda", torch.cuda.current_device()))
+    for calibration in (False, True):
+        rec = step("bench.e2e", lambda: e2e.bench(fq, "cuda", 1, calibration),
+                   ("bwd", "fwd", "tb"))
+        print(json.dumps({**rec, **where}), flush=True)
+    for rec in step("bench.multichip", lambda: list(multichip.measure(shards=(1, 2))),
+                    ("bwd", "fwd", "tb")):
+        print(json.dumps(rec), flush=True)
+    eng = flagship_engine()
+    step("TAGDUST_TPU_NIBBLE", lambda: entry_nibble_rows(eng, seed), ("bwd", "fwd", "tb"))
+    del eng
+    runs = entry_decisions(fq, sets["flagship"], tmp)
+    for r in runs.values():
+        for k in launches:
+            launches[k] += r["launches"][k]
+    wall = time.perf_counter() - t0
+    print(f"[entry] {wall:.1f} s; launches {launches}", flush=True)
+    return {"launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1964,6 +2181,20 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    # the entry phase's input is made meanwhile, and the child ends with the script
+    maker = start_e2e_input() if on("entry") else None
+    try:
+        return run(args, only, on, maker)
+    finally:
+        if maker is not None and maker.poll() is None:
+            maker.kill()
+            maker.wait()
+
+
+def run(args, only: list, on, maker) -> int:
+    """The phases of ``main``."""
+    import torch
+
     from tagdust_tpu_torch.engine import build
     from tagdust_tpu_torch.engine.cuda import CudaEngine
     from tagdust_tpu_torch.flagship import spacer
@@ -2043,6 +2274,9 @@ def main() -> int:
             paths["multihost"] = phase_multihost(paths["flagship"], tmp)
         if on("mesh"):
             paths["mesh"] = phase_mesh(sets, paths["flagship"], args.seed, tmp)
+        if on("entry"):
+            paths["entry"] = phase_entry(sets, timing, args.seed, tmp, maker)
+            print(f"entry times above on: {card}", flush=True)
         for r in paths.values():
             for k in launches:
                 launches[k] += r["launches"][k]

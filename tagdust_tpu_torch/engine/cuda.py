@@ -11,6 +11,8 @@ The counterpart of ``tagdust_tpu/engine/tpu.py:TpuEngine``:
 * ``dispatch_decided`` — the streaming decided mode (rows parsed by
   ``decided.collect_decided``):
   labels stay on the device, the host receives Lp/8+25 bytes per read;
+  its upload, and that of ``run_batch_fused`` at an even length, is
+  nibble-packed unless ``nibble_uploads`` says no;
 * ``dispatch_packed``  — the streaming label-carrying mode (rows parsed by
   ``collect_packed``) for sub-range decodes (``-start/-end``) and
   fingerprints past 27nt, which the host extractor decides: one uint8 row
@@ -75,6 +77,15 @@ def grouped_step_mode(mb: ModelBag, lat):
             "scoring on the dense (non-zero) step kernels",
         )
     return g
+
+
+def nibble_uploads() -> bool:
+    """Upload reads nibble-packed (2 bases a byte)?  On by default;
+    TAGDUST_TPU_NIBBLE=0 uploads plain uint8 rows instead, the A/B switch
+    of the JAX package (``tpu.py:nibble_uploads``): the gain depends on the
+    host-to-device link's rate against the cost of packing.  Either way the
+    kernels read the same codes."""
+    return os.environ.get("TAGDUST_TPU_NIBBLE", "1") == "1"
 
 
 # the largest fused launch since the last reset: its reads and the bytes of
@@ -236,6 +247,16 @@ class CudaEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _upload_seqs(self, seqs: np.ndarray) -> torch.Tensor:
+        """[B, Lp] codes on the device as uint8: sent nibble-packed and
+        unpacked there where ``nibble_uploads`` and an even Lp allow it,
+        else as they are (tpu.py:986-1000)."""
+        seqs = seqs.astype(np.uint8)
+        Lp = seqs.shape[1]
+        if Lp % 2 or not nibble_uploads():
+            return self._upload(seqs)
+        return D.unpack_nibbles(self._upload(D.pack_nibbles(seqs)), Lp)
+
     def _full(self, seqs: torch.Tensor, lens: torch.Tensor, packed: bool = False):
         """Fused kernels + scoring epilogue (tpu.py _get_pallas.full)."""
         B, Lp = seqs.shape
@@ -307,7 +328,7 @@ class CudaEngine:
         parts = []
         for s in range(0, seqs.shape[0], max_b):
             out = self._full(
-                self._upload(seqs[s : s + max_b].astype(np.uint8)),
+                self._upload_seqs(seqs[s : s + max_b]),
                 self._upload(lens[s : s + max_b].astype(np.int32)),
             )
             if not want_labels:
@@ -333,9 +354,8 @@ class CudaEngine:
                          minlen: int) -> torch.Tensor:
         """Enqueue one decided-mode window; returns its rows on the device
         without waiting (tpu.py dispatch_pallas_decided).  The upload is
-        nibble-packed."""
-        Lp = seqs.shape[1]
-        s = D.unpack_nibbles(self._upload(D.pack_nibbles(seqs.astype(np.uint8))), Lp)
+        nibble-packed unless TAGDUST_TPU_NIBBLE=0."""
+        s = self._upload_seqs(seqs)
         ln = self._upload(lens.astype(np.int32))
         _, _, _, labels, q = self._full(s, ln)
         return D.decided_rows(

@@ -339,7 +339,8 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     device, ``dispatch_decided``) where it applies; sub-range decodes
     (``-start/-end``) and fingerprints past 27nt, which the host extractor
     decides, stream through the label-carrying rows (``dispatch_packed``)
-    and extract each window with ``extract_batch_columnar``.  Returns False
+    and extract each window with ``extract_batch_columnar``; so does every
+    chunk under TAGDUST_TPU_DEVICE_DECISIONS=0.  Returns False
     when the chunk fits one window, or a window of the batch granularity
     would not fit the stack budget (the caller labels it one-shot).
 
@@ -357,7 +358,10 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     sub = matchstart != -1 or matchend != -1
     eng = get_engine(mb, kind)
     rfl = eng.required_finger_len()
-    decided = not sub and rfl <= 27
+    # TAGDUST_TPU_DEVICE_DECISIONS=0 sends every chunk through the
+    # label-carrying rows and the host extractor (JAX runner.py:622-630)
+    decided = (not sub and rfl <= 27
+               and os.environ.get("TAGDUST_TPU_DEVICE_DECISIONS", "1") == "1")
     full_lens = batch.lens
     Lmax = (matchend - matchstart) if sub else int(full_lens.max(initial=1))
     Lpad = max((int(Lmax) + 31) // 32 * 32, 32)
