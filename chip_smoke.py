@@ -882,14 +882,14 @@ def run_path(name: str, args, expect) -> dict:
     just before it and read just after; every kernel in ``expect`` (the
     counters of the kernels the path runs, in the engine's step mode) must
     have launched, and no plain version may have run on CUDA tensors."""
-    from tagdust_tpu_torch import controller, filters
+    from tagdust_tpu_torch import controller, spans
     from tagdust_tpu_torch.engine import fused_kernel, runner, scan
 
     for k in fused_kernel.LAUNCHES:
         fused_kernel.LAUNCHES[k] = 0
     scan.PLAIN_CUDA_CALLS["count"] = 0
     runner.STREAM_STATS.update(windows=0, oneshot_after_failure=0)
-    filters.REF_TIMINGS.update(calls=0, gather_s=0.0, masks_s=0.0, lanes_s=0.0)
+    spans.reset()
     wall = run_tagdust(args)
     launches = dict(fused_kernel.LAUNCHES)
     windows = runner.STREAM_STATS["windows"]
@@ -912,7 +912,9 @@ def run_path(name: str, args, expect) -> dict:
     if plain:
         fail(f"{name}: plain versions ran {plain} times on CUDA tensors")
     return {"wall_s": wall, "detection_s": det, "calibration_s": cal,
-            "launches": launches, "ref": dict(filters.REF_TIMINGS)}
+            "launches": launches,
+            "ref": {k: spans.TIMINGS.get(k, 0) for k in
+                    ("ref.gather.calls", "ref.gather", "ref.masks", "ref.lanes")}}
 
 
 def check_output(name: str, out: str, bcs, truth) -> None:
@@ -1013,11 +1015,11 @@ def phase_ref(bcs, seed: int, n_reads: int, tmp: str) -> dict:
     flags = ["-ref", fa, "-fe", str(REF_FE)]
     r = phase_main("ref", bcs, seed + 3, n_reads, tmp, flags, plant=texts)
     rt = r["ref"]
-    inside = rt["gather_s"] + rt["masks_s"] + rt["lanes_s"]
+    inside = rt["ref.gather"] + rt["ref.masks"] + rt["ref.lanes"]
     print(f"[ref] {r['wall_s']:.2f} s wall; inside match_to_reference_columnar "
-          f"{inside:.2f} s over {rt['calls']} calls: host gather of the patterns "
-          f"{rt['gather_s']:.2f} s, host mask building {rt['masks_s']:.2f} s, device "
-          f"(upload, td_myers, fetch) {rt['lanes_s']:.2f} s; td_myers launches "
+          f"{inside:.2f} s over {rt['ref.gather.calls']} calls: host gather of the "
+          f"patterns {rt['ref.gather']:.2f} s, host mask building {rt['ref.masks']:.2f} "
+          f"s, device (upload, td_myers, fetch) {rt['ref.lanes']:.2f} s; td_myers launches "
           f"{r['launches']['myers']}", flush=True)
     planted = r["planted"]
     got = outcomes(r["out"], bcs, n_reads)
@@ -1572,6 +1574,7 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     smaller ``shape`` (B, Lp) run the same on the host."""
     import torch
 
+    from tagdust_tpu_torch import spans
     from tagdust_tpu_torch.engine import fused_kernel, scan
     from tagdust_tpu_torch.engine.cuda import CudaEngine
     from tagdust_tpu_torch.engine.train import reestimate
@@ -1601,7 +1604,7 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     for k in fused_kernel.LAUNCHES:
         fused_kernel.LAUNCHES[k] = 0
     scan.PLAIN_CUDA_CALLS["count"] = 0
-    mesh.TIMINGS.update(backward_s=0.0, estep_s=0.0, map_s=0.0)
+    spans.reset()
     t0 = time.perf_counter()
     counts = trainer.expected_segment_counts(seqs, lens)
     t1 = time.perf_counter()
@@ -1609,7 +1612,9 @@ def phase_train(sets: dict, seed: int, n_reads: int = TRAIN_READS,
     t2 = time.perf_counter()
     launches = dict(fused_kernel.LAUNCHES)
     plain = scan.PLAIN_CUDA_CALLS["count"]
-    split = dict(mesh.TIMINGS, reestimate_s=t2 - t1)
+    split = {"backward_s": spans.TIMINGS.get("mesh.backward", 0.0),
+             "estep_s": spans.TIMINGS.get("mesh.estep", 0.0),
+             "map_s": spans.TIMINGS.get("mesh.map", 0.0), "reestimate_s": t2 - t1}
     worst = 0.0
     for m in mb2.models:
         for em in (m.m_emit, m.i_emit):

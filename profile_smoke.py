@@ -63,10 +63,10 @@ def busy_seconds(prof) -> float:
 
 
 def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
-    from tagdust_tpu_torch import controller, filters
+    from tagdust_tpu_torch import controller, spans
 
     def run(k: int) -> float:
-        filters.REF_TIMINGS.update(calls=0, gather_s=0.0, masks_s=0.0, lanes_s=0.0)
+        spans.reset()
         return cs.run_tagdust([*args, "-o", os.path.join(tmp, f"{name}_{k}"),
                                "-engine", "cuda"])
 
@@ -75,10 +75,10 @@ def profile_path(name: str, args, tmp: str, out_dir: str) -> None:
               f"{controller.TIMINGS['detection']:.2f} s, calibration "
               f"{controller.TIMINGS['calibration']:.2f} s", flush=True)
         if "-ref" in args:
-            rt = filters.REF_TIMINGS
-            print(f"[{name}]   artifact filter, {rt['calls']} calls: host gather "
-                  f"{rt['gather_s']:.2f} s, host masks {rt['masks_s']:.2f} s, device "
-                  f"(upload, td_myers, fetch) {rt['lanes_s']:.2f} s", flush=True)
+            rt = spans.TIMINGS
+            print(f"[{name}]   artifact filter, {rt['ref.gather.calls']} calls: host "
+                  f"gather {rt['ref.gather']:.2f} s, host masks {rt['ref.masks']:.2f} s, "
+                  f"device (upload, td_myers, fetch) {rt['ref.lanes']:.2f} s", flush=True)
 
     profile_runs(name, run, report, out_dir)
 
@@ -91,6 +91,7 @@ def profile_train(seed: int, n_reads: int, out_dir: str) -> None:
     import numpy as np
     import torch
 
+    from tagdust_tpu_torch import spans
     from tagdust_tpu_torch.engine.cuda import CudaEngine
     from tagdust_tpu_torch.engine.train import reestimate
     from tagdust_tpu_torch.parallel import mesh
@@ -101,15 +102,15 @@ def profile_train(seed: int, n_reads: int, out_dir: str) -> None:
     trainer = mesh.DistributedTrainer(eng)
 
     def em(k: int) -> float:
-        mesh.TIMINGS.update(backward_s=0.0, estep_s=0.0, map_s=0.0)
+        spans.reset()
         t0 = time.perf_counter()
         reestimate(eng.mb, trainer.expected_segment_counts(seqs, lens))
         return time.perf_counter() - t0
 
     def em_report(k: int, wall: float) -> None:
-        t = mesh.TIMINGS
-        print(f"[train] unprofiled run {k}: {wall:.2f} s wall, K1 {t['backward_s']:.2f} "
-              f"s, E-step {t['estep_s']:.2f} s, host mapping {t['map_s']:.2f} s",
+        t = spans.TIMINGS
+        print(f"[train] unprofiled run {k}: {wall:.2f} s wall, K1 {t['mesh.backward']:.2f} "
+              f"s, E-step {t['mesh.estep']:.2f} s, host mapping {t['mesh.map']:.2f} s",
               flush=True)
 
     profile_runs("train", em, em_report, out_dir)

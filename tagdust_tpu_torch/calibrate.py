@@ -32,6 +32,7 @@ from .constants import DD, DM, II, IM, ISKIP, MD, MI, MM, MSKIP
 from .logsum import NEG_INF, logsum, p2sp, sp2p
 from .model import ModelBag, init_model_bag
 from .rng import CRand
+from .spans import span
 
 _F32 = np.float32
 
@@ -187,43 +188,44 @@ def estimate_q_threshold(param, rs, ssi, run_get_prob) -> float:
     # code arrays) + rt (read_type per seq) — the sweep and the scorer
     # both consume arrays, so no per-read Python objects exist at all
     seqs: List[np.ndarray] = []
-    flat = None
-    if os.environ.get("TAGDUST_TPU_NO_NATIVE") != "1":
-        try:
-            from .engine.native import FlatModel
+    with span("calibration.emit"):
+        flat = None
+        if os.environ.get("TAGDUST_TPU_NO_NATIVE") != "1":
+            try:
+                from .engine.native import FlatModel
 
-            flat = FlatModel(mb)
-        except Exception as e:  # noqa: BLE001 — loud downgrade, strict re-raise
-            from .strict import fallback
+                flat = FlatModel(mb)
+            except Exception as e:  # noqa: BLE001 — loud downgrade, strict re-raise
+                from .strict import fallback
 
-            fallback(
-                "native-emitters",
-                e,
-                "native C++ read emitters unavailable; calibration emits "
-                "reads in pure Python (much slower)",
+                fallback(
+                    "native-emitters",
+                    e,
+                    "native C++ read emitters unavailable; calibration emits "
+                    "reads in pure Python (much slower)",
+                )
+                flat = None
+        if flat is not None:
+            # one native call per 32k-read slab (FlatModel._emit_batch) — the
+            # per-read ctypes round trips used to cost ~24s of every
+            # default-flag run; the LCG draw order is identical
+            state = int(rng.next)
+            state, model_seqs = flat.emit_read_batch(state, avg_len, binsize * 2)
+            seqs.extend(model_seqs)
+            n_model = len(seqs)
+            state, rand_seqs = flat.emit_random_batch(
+                state, avg_len, min(binsize * 2, num_test - len(seqs))
             )
-            flat = None
-    if flat is not None:
-        # one native call per 32k-read slab (FlatModel._emit_batch) — the
-        # per-read ctypes round trips used to cost ~24s of every
-        # default-flag run; the LCG draw order is identical
-        state = int(rng.next)
-        state, model_seqs = flat.emit_read_batch(state, avg_len, binsize * 2)
-        seqs.extend(model_seqs)
-        n_model = len(seqs)
-        state, rand_seqs = flat.emit_random_batch(
-            state, avg_len, min(binsize * 2, num_test - len(seqs))
-        )
-        seqs.extend(rand_seqs)
-        rng.next = np.uint32(state)
-    else:
-        for _ in range(binsize * 2):
-            seqs.append(emit_read_sequence(mb, rng, avg_len))
-        n_model = len(seqs)
-        for _ in range(binsize * 2):
-            seqs.append(emit_random_sequence(mb, rng, avg_len))
-            if len(seqs) == num_test:
-                break
+            seqs.extend(rand_seqs)
+            rng.next = np.uint32(state)
+        else:
+            for _ in range(binsize * 2):
+                seqs.append(emit_read_sequence(mb, rng, avg_len))
+            n_model = len(seqs)
+            for _ in range(binsize * 2):
+                seqs.append(emit_random_sequence(mb, rng, avg_len))
+                if len(seqs) == num_test:
+                    break
     rt = np.zeros(len(seqs), dtype=np.float64)
     rt[n_model:] = 1.0  # 1 = random-model read
 
@@ -237,8 +239,17 @@ def estimate_q_threshold(param, rs, ssi, run_get_prob) -> float:
         ssi.max_seq_len = max_emitted
     mb = init_model_bag(rs, ssi, param.sequencer_error_rate, param.indel_frequency)
 
-    mapq = np.asarray(run_get_prob(mb, seqs), dtype=np.float64)
+    with span("calibration.score"):
+        mapq = np.asarray(run_get_prob(mb, seqs), dtype=np.float64)
 
+    with span("calibration.sweep"):
+        return _sweep(mapq, rt, TN, FN)
+
+
+def _sweep(mapq: np.ndarray, rt: np.ndarray, TN: float, FN: float) -> float:
+    """The threshold from the emitted reads' Q (``mapq``) and their kind
+    (``rt``: 1.0 a random-model read), as ``estimate_q_threshold`` returns
+    it."""
     order = np.argsort(-mapq, kind="stable")
 
     # vectorised sweep (calibrateQ.c:150-212).  The loop state is pure
@@ -247,7 +258,7 @@ def estimate_q_threshold(param, rs, ssi, run_get_prob) -> float:
     # the same operation order as the scalar loop — results are
     # bit-identical (the RTEST gold thresholds pin this), and the 400k-step
     # Python loop (~2 s of every default-flag run) disappears.
-    readnum = len(seqs)
+    readnum = len(mapq)
     rt_s = rt[order]
     mq = mapq[order]
     FPv = np.cumsum(rt_s)

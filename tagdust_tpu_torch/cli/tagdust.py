@@ -3,8 +3,12 @@
 The flags of ``tagdust_tpu.cli.tagdust``, parsed by this package's copy of
 ``config.parse_args``; ``-engine`` takes ``auto`` (the default: the card,
 and an error without one), ``cuda``, ``torch`` (the plain versions on the
-CPU) and ``exact`` (the host C-parity engine).  ``-profile DIR`` writes a ``torch.profiler`` trace
-of the run (a Chrome trace, ``DIR/trace.json``).
+CPU) and ``exact`` (the host C-parity engine).  ``-profile DIR`` writes a
+``torch.profiler`` trace of the run (a Chrome trace, ``DIR/trace.json``):
+the device's operations and the main thread's ``tagdust.<span>`` ranges
+(``spans.py``).  The profiler records only the thread that started it, so
+the parse and writer threads' spans (``io.parse``, ``io.write``) are in the
+per-job record ``controller.TIMINGS`` alone.
 
     python -m tagdust_tpu_torch.cli.tagdust -1 B:ACAGTG,ACTTGA -2 R:N \
         in.fq -o out -engine cuda

@@ -56,6 +56,8 @@ from .model import init_model_bag
 from .namecheck import compare_read_names
 from .stats import get_sequence_stats
 from .detect import test_architectures
+from . import spans
+from .spans import TIMINGS, span
 from .engine.runner import (
     resolve_engine,
     run_get_label_batch,
@@ -82,17 +84,12 @@ class MessageLog:
                 fh.write("".join(self.messages) + "\n")
 
 
-# wall seconds of the last run's -arch detection and its stats + threshold
-# calibration phase
-TIMINGS = {"detection": 0.0, "calibration": None}
-
-
 def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
     log = log or MessageLog()
     nfiles = param.infiles
     # concrete engine kind before anything reads it
     param.engine = resolve_engine(param)
-    TIMINGS.update(detection=0.0, calibration=None)
+    spans.reset()
 
     # multi-host: each process owns chunks with index % nproc == pid,
     # skip-parses the rest (io/fastq.py:skip_chunk), and writes its own
@@ -154,9 +151,8 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
             if i == 0 and cli_rs.num_segments:
                 rs = cli_rs
             elif param.arch_file:
-                t_det = time.perf_counter()
-                rs = test_architectures(param, i, log=log)
-                TIMINGS["detection"] += time.perf_counter() - t_det
+                with span("detection"):
+                    rs = test_architectures(param, i, log=log)
             else:
                 rs = build_read_structure(["R:N"])
                 qc_read_structure(rs)
@@ -208,13 +204,14 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
 
     def _compute_stats_thresholds():
         t_cal = time.perf_counter()
-        stats = [
-            get_sequence_stats(
-                param.infile[i], read_structures[i], param.num_query,
-                param.matchstart, param.matchend, sam_filter=param.filter,
-            )
-            for i in range(nfiles)
-        ]
+        with span("controller.stats"):
+            stats = [
+                get_sequence_stats(
+                    param.infile[i], read_structures[i], param.num_query,
+                    param.matchstart, param.matchend, sam_filter=param.filter,
+                )
+                for i in range(nfiles)
+            ]
         thresholds = [0.0] * nfiles
         if not param.confidence_threshold:
             # calibrate on the engine production will score with
@@ -234,13 +231,14 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
 
     stats, thresholds = _once_on_host0(_compute_stats_thresholds)
 
-    model_bags = [
-        init_model_bag(
-            read_structures[i], stats[i], param.sequencer_error_rate,
-            param.indel_frequency,
-        )
-        for i in range(nfiles)
-    ]
+    with span("controller.model_build"):
+        model_bags = [
+            init_model_bag(
+                read_structures[i], stats[i], param.sequencer_error_rate,
+                param.indel_frequency,
+            )
+            for i in range(nfiles)
+        ]
 
     contaminants = None
     contaminant_names = None
@@ -292,7 +290,9 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
             while not stop.is_set():
                 clen = first_chunk if cidx == 0 else read_chunk
                 if nproc == 1 or cidx % nproc == pid:
-                    chunks = [readers[i].read_chunk_batch(clen) for i in range(nfiles)]
+                    with span("io.parse"):
+                        chunks = [readers[i].read_chunk_batch(clen)
+                                  for i in range(nfiles)]
                     counts = [c.B for c in chunks]
                 elif cidx == 0 and nfiles > 1:
                     head = min(1000, clen)
@@ -322,7 +322,8 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
                 continue
             try:
                 chunks_, numseq_, cidx_ = item
-                writer.write_batch_columnar(chunks_, numseq_)
+                with span("io.write"):
+                    writer.write_batch_columnar(chunks_, numseq_)
                 if writer.track_chunks:
                     # the GLOBAL-chunk-indexed byte ranges the shard merge
                     # interleaves back (multihost.py:merge_output_shards)
@@ -350,7 +351,8 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
 
     first_batch = True
     while True:
-        item = chunk_q.get()
+        with span("io.reader_wait"):
+            item = chunk_q.get()
         if isinstance(item, BaseException):
             _shutdown_pipeline()
             raise item
@@ -426,7 +428,8 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
         if writer_err:
             _shutdown_pipeline()
             raise writer_err[0]
-        write_q.put((chunks, numseqs[0], chunk_idx))
+        with span("io.writer_wait"):
+            write_q.put((chunks, numseqs[0], chunk_idx))
         first_batch = False
 
         counters["total"] += numseqs[0]
@@ -456,14 +459,15 @@ def hmm_controller_multiple(param, log: Optional[MessageLog] = None) -> None:
             for k in range(len(mer_hash)):
                 mer_hash[k] += int(bc[k])
 
-    if writer_thread is not None:
-        write_q.put(None)
-        writer_thread.join()
-        if writer_err:
-            raise writer_err[0]
+    with span("io.writer_wait"):
+        if writer_thread is not None:
+            write_q.put(None)
+            writer_thread.join()
+            if writer_err:
+                raise writer_err[0]
+        if writer is not None:
+            writer.close()
     reader_thread.join(timeout=10)
-    if writer is not None:
-        writer.close()
     if not reader_thread.is_alive():
         # close the readers only once the reader thread is provably done
         for r in readers:

@@ -38,6 +38,7 @@ from .engine.runner import (
 from .io.fastq import SeqReader
 from .logsum import logsum
 from .model import init_model_bag
+from .spans import span
 from .stats import get_sequence_stats
 
 NUM_QUERY = 100000
@@ -125,12 +126,15 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
     candidates = []
     for line, specs in entries:
         rs = build_read_structure(specs)
-        ssi = get_sequence_stats(
-            path, rs, NUM_QUERY, param.matchstart, param.matchend,
-            sam_filter=param.filter,
-        )
+        with span("detect.stats"):
+            ssi = get_sequence_stats(
+                path, rs, NUM_QUERY, param.matchstart, param.matchend,
+                sam_filter=param.filter,
+            )
         qc_read_structure(rs)
-        mb = init_model_bag(rs, ssi, param.sequencer_error_rate, param.indel_frequency)
+        with span("detect.build"):
+            mb = init_model_bag(rs, ssi, param.sequencer_error_rate,
+                                param.indel_frequency)
         candidates.append((line, mb))
     if not candidates:
         raise SystemExit(
@@ -138,15 +142,18 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
         )
 
     if len(candidates) > 1:
-        reader = SeqReader(path, sam_filter=param.filter)
-        reads = reader.read_chunk(NUM_QUERY)
-        reader.close()
+        with span("detect.read"):
+            reader = SeqReader(path, sam_filter=param.filter)
+            reads = reader.read_chunk(NUM_QUERY)
+            reader.close()
         models = [mb for _, mb in candidates]
-        if kind in DEVICE_KINDS:
-            bscores = _device_scores(reads, models, kind)
-        else:
-            bscores = _exact_scores(reads, models)
-        best, best_score = _pick(bscores, param.num_threads)
+        with span("detect.score"):
+            if kind in DEVICE_KINDS:
+                bscores = _device_scores(reads, models, kind)
+            else:
+                bscores = _exact_scores(reads, models)
+        with span("detect.pick"):
+            best, best_score = _pick(bscores, param.num_threads)
         if log:
             log(pretty_print_selected_architecture(candidates[best][0]))
             log(f"{best_score:.2f} Confidence.\n")

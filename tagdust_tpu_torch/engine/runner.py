@@ -30,6 +30,7 @@ from ..extract import compute_q
 from ..io.fastq import Read
 from ..model import ModelBag
 from ..parallel.mesh import local_devices
+from ..spans import span
 from .cuda import BatchResult
 from .decided import collect_decided
 from .exact import ExactEngine
@@ -81,12 +82,13 @@ def get_engine(mb: ModelBag, kind: str):
         dig = mb._digest_cache = mb.digest()
     key = (dig, kind, os.environ.get("TAGDUST_TPU_GROUPED", "auto"))
     if key not in _ENGINE_CACHE:
-        if kind in DEVICE_KINDS:
-            from .cuda import CudaEngine
+        with span("runner.engine_build"):
+            if kind in DEVICE_KINDS:
+                from .cuda import CudaEngine
 
-            _ENGINE_CACHE[key] = CudaEngine(mb, "cuda" if kind == "cuda" else "cpu")
-        else:
-            _ENGINE_CACHE[key] = ExactEngine(mb)
+                _ENGINE_CACHE[key] = CudaEngine(mb, "cuda" if kind == "cuda" else "cpu")
+            else:
+                _ENGINE_CACHE[key] = ExactEngine(mb)
     return _ENGINE_CACHE[key]
 
 
@@ -423,43 +425,48 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
         return host, evs
 
     def _extract(s, e, host, evs):
-        for ev in evs:
-            ev.synchronize()
-        consumed[0] += 1
-        win = batch.slice(s, e)
-        if decided:
-            res = collect_decided(host.numpy(), e - s, Lpad)
-            dust_dev[s:e] = res["dust"]
-            apply_device_decisions(win, res, rfl)
-        else:
-            res = eng.collect_packed(host.numpy(), e - s, Lpad)
-            if dust_dev is not None:
-                dust_dev[s:e] = res.dust
-            win.mapq[:] = res.mapq.astype(np.float64)
-            extract_batch_columnar(
-                mb, rs, win, res.labels, param.minlen, confidence_threshold,
-                matchstart, matchend,
-            )
-            if win.fp_big:
-                batch.fp_big.update({s + k: v for k, v in win.fp_big.items()})
-                batch.fingerprint[s:e][list(win.fp_big)] = -2
-        STREAM_STATS["windows"] += 1
+        with span("runner.wait"):
+            for ev in evs:
+                ev.synchronize()
+        with span("runner.extract"):
+            consumed[0] += 1
+            win = batch.slice(s, e)
+            if decided:
+                res = collect_decided(host.numpy(), e - s, Lpad)
+                dust_dev[s:e] = res["dust"]
+                apply_device_decisions(win, res, rfl)
+            else:
+                res = eng.collect_packed(host.numpy(), e - s, Lpad)
+                if dust_dev is not None:
+                    dust_dev[s:e] = res.dust
+                win.mapq[:] = res.mapq.astype(np.float64)
+                extract_batch_columnar(
+                    mb, rs, win, res.labels, param.minlen, confidence_threshold,
+                    matchstart, matchend,
+                )
+                if win.fp_big:
+                    batch.fp_big.update({s + k: v for k, v in win.fp_big.items()})
+                    batch.fingerprint[s:e][list(win.fp_big)] = -2
+            STREAM_STATS["windows"] += 1
 
     def _stage():
         # start the oldest window's copy, then extract the window before it,
         # whose copy has been in flight meanwhile
         s, e, rows = inflight.popleft()
-        ready.append((s, e) + _fetch(rows))
+        with span("runner.fetch"):
+            ready.append((s, e) + _fetch(rows))
         if len(ready) > 1:
             _extract(*ready.popleft())
 
     try:
         for s in range(0, B, W):
             e = min(s + W, B)
-            seqs, lens_w = _window(s, e)
+            with span("runner.prepare"):
+                seqs, lens_w = _window(s, e)
             src = scorer if scorer is not None else eng
-            rows = (src.dispatch_decided(seqs, lens_w, thr32, minlen) if decided
-                    else src.dispatch_packed(seqs, lens_w))
+            with span("runner.dispatch"):
+                rows = (src.dispatch_decided(seqs, lens_w, thr32, minlen) if decided
+                        else src.dispatch_packed(seqs, lens_w))
             inflight.append((s, e, rows))
             if len(inflight) >= DEPTH:
                 _stage()
@@ -491,33 +498,35 @@ def run_get_label_batch(mb, rs, batch, param, confidence_threshold,
     from ..extract import extract_batch_columnar
     from ..filters import dust_batch_columnar, match_to_reference_columnar
 
-    kind = resolve_engine(param)
-    batch.dust_device = None
-    if kind not in DEVICE_KINDS or not _label_streaming(
-        mb, rs, batch, param, confidence_threshold, kind
-    ):
-        labels = _score_batch_columnar(
-            mb, batch, param.matchstart, param.matchend, kind
-        )
-        extract_batch_columnar(
-            mb, rs, batch, labels, param.minlen, confidence_threshold,
-            param.matchstart, param.matchend,
-        )
-    # the dust filter sees the extracted sequence for successes, the raw one
-    # for rejects: captured before the artifact filter rewrites read_type
-    was_success = batch.read_type == EXTRACT_SUCCESS
-    if contaminants is not None:
-        match_to_reference_columnar(
-            batch, contaminants, param.filter_error, device=kind
-        )
-    if param.dust:
-        dd = batch.dust_device
-        if dd is not None:
-            score = np.where(was_success, dd[:, 0], dd[:, 1])
-            with np.errstate(invalid="ignore"):
-                batch.read_type[score > param.dust] = EXTRACT_FAIL_LOW_COMPLEXITY
-        else:
-            dust_batch_columnar(batch, param.dust)
+    with span("runner.label"):
+        kind = resolve_engine(param)
+        batch.dust_device = None
+        if kind not in DEVICE_KINDS or not _label_streaming(
+            mb, rs, batch, param, confidence_threshold, kind
+        ):
+            with span("runner.oneshot"):
+                labels = _score_batch_columnar(
+                    mb, batch, param.matchstart, param.matchend, kind
+                )
+                extract_batch_columnar(
+                    mb, rs, batch, labels, param.minlen, confidence_threshold,
+                    param.matchstart, param.matchend,
+                )
+        # the dust filter sees the extracted sequence for successes, the raw one
+        # for rejects: captured before the artifact filter rewrites read_type
+        was_success = batch.read_type == EXTRACT_SUCCESS
+        if contaminants is not None:
+            match_to_reference_columnar(
+                batch, contaminants, param.filter_error, device=kind
+            )
+        if param.dust:
+            dd = batch.dust_device
+            if dd is not None:
+                score = np.where(was_success, dd[:, 0], dd[:, 1])
+                with np.errstate(invalid="ignore"):
+                    batch.read_type[score > param.dust] = EXTRACT_FAIL_LOW_COMPLEXITY
+            else:
+                dust_batch_columnar(batch, param.dust)
 
 
 def run_rna_dust_batch(batch, param, contaminants=None) -> None:

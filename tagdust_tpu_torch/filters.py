@@ -13,7 +13,6 @@
 
 from __future__ import annotations
 
-import time
 from typing import List
 
 import numpy as np
@@ -26,6 +25,7 @@ from .constants import (
     SPACER,
 )
 from .io.fastq import Read
+from .spans import span
 
 _M64 = (1 << 64) - 1
 
@@ -138,12 +138,6 @@ def dust_batch_columnar(batch, dust_cut: int) -> None:
         batch.read_type[scores > dust_cut] = EXTRACT_FAIL_LOW_COMPLEXITY
 
 
-# seconds the columnar artifact filter has spent since the last reset:
-# gathering the patterns from the arena, building their masks on the host,
-# and in the Myers lanes (on a device: upload, kernel and fetch)
-REF_TIMINGS = {"calls": 0, "gather_s": 0.0, "masks_s": 0.0, "lanes_s": 0.0}
-
-
 def match_to_reference_columnar(
     batch, contaminant_seqs: List[np.ndarray], error_cut: int,
     device=None,
@@ -153,27 +147,25 @@ def match_to_reference_columnar(
     B = batch.B
     if B == 0 or not contaminant_seqs:
         return
-    t0 = time.perf_counter()
-    W = 63
-    full = batch.lens
-    lens = np.minimum(full, W).astype(np.int32)
-    arena = batch.seq_arena
-    cap = max(arena.shape[0] - 1, 0)
-    off = batch.seq_off[:-1]
-    pos = np.arange(W, dtype=np.int64)[None, :]
-    valid = pos < lens[:, None]
-    fwd = arena[np.minimum(off[:, None] + pos, cap)].copy()
-    fwd[~valid] = SPACER
-    # reverse_complement of the FULL read, then first 63 symbols
-    # (misc.c:829-853; spacers preserved)
-    ridx = off[:, None] + (full[:, None] - 1 - pos)
-    rv = arena[np.minimum(np.maximum(ridx, 0), cap)]
-    rev = np.where(rv >= 5, SPACER, REV_NUC_CODE[np.minimum(rv, 4)]).astype(
-        np.uint8
-    )
-    rev[~valid] = SPACER
-    REF_TIMINGS["calls"] += 1
-    REF_TIMINGS["gather_s"] += time.perf_counter() - t0
+    with span("ref.gather"):
+        W = 63
+        full = batch.lens
+        lens = np.minimum(full, W).astype(np.int32)
+        arena = batch.seq_arena
+        cap = max(arena.shape[0] - 1, 0)
+        off = batch.seq_off[:-1]
+        pos = np.arange(W, dtype=np.int64)[None, :]
+        valid = pos < lens[:, None]
+        fwd = arena[np.minimum(off[:, None] + pos, cap)].copy()
+        fwd[~valid] = SPACER
+        # reverse_complement of the FULL read, then first 63 symbols
+        # (misc.c:829-853; spacers preserved)
+        ridx = off[:, None] + (full[:, None] - 1 - pos)
+        rv = arena[np.minimum(np.maximum(ridx, 0), cap)]
+        rev = np.where(rv >= 5, SPACER, REV_NUC_CODE[np.minimum(rv, 4)]).astype(
+            np.uint8
+        )
+        rev[~valid] = SPACER
     hit, best_id = _reference_hits(fwd, rev, lens, contaminant_seqs,
                                    error_cut, device)
     mark = hit & (batch.read_type == EXTRACT_SUCCESS)
@@ -189,31 +181,27 @@ def _reference_hits(fwd, rev, lens, contaminant_seqs, error_cut, device=None):
     (``engine/myers.py``); anything else runs the host uint64 lanes.  A
     kernel that fails to build or launch raises: nothing downgrades to the
     host lanes."""
-    t0 = time.perf_counter()
     B = fwd.shape[0]
-    B4f = _pattern_masks(fwd, lens)
-    B4r = _pattern_masks(rev, lens)
-    t1 = time.perf_counter()
-    REF_TIMINGS["masks_s"] += t1 - t0
-    if device in ("cuda", "torch"):
-        from .engine.myers import reference_hits_device
+    with span("ref.masks"):
+        B4f = _pattern_masks(fwd, lens)
+        B4r = _pattern_masks(rev, lens)
+    with span("ref.lanes"):
+        if device in ("cuda", "torch"):
+            from .engine.myers import reference_hits_device
 
-        out = reference_hits_device(
-            B4f, B4r, lens, contaminant_seqs, error_cut,
-            "cuda" if device == "cuda" else "cpu",
-        )
-        REF_TIMINGS["lanes_s"] += time.perf_counter() - t1
-        return out
-    best = np.full(B, 100000, dtype=np.int64)
-    best_id = np.zeros(B, dtype=np.int64)
-    for j, ref in enumerate(contaminant_seqs):
-        for B4 in (B4f, B4r):
-            d = _bpm_batch(ref, B4, lens)
-            better = d < best
-            best = np.where(better, d, best)
-            best_id = np.where(better, j + 1, best_id)
-    REF_TIMINGS["lanes_s"] += time.perf_counter() - t1
-    return (best <= error_cut) & (lens > 0), best_id
+            return reference_hits_device(
+                B4f, B4r, lens, contaminant_seqs, error_cut,
+                "cuda" if device == "cuda" else "cpu",
+            )
+        best = np.full(B, 100000, dtype=np.int64)
+        best_id = np.zeros(B, dtype=np.int64)
+        for j, ref in enumerate(contaminant_seqs):
+            for B4 in (B4f, B4r):
+                d = _bpm_batch(ref, B4, lens)
+                better = d < best
+                best = np.where(better, d, best)
+                best_id = np.where(better, j + 1, best_id)
+        return (best <= error_cut) & (lens > 0), best_id
 
 
 def bpm_check_error(text: np.ndarray, pattern: np.ndarray, n: int, m: int) -> int:

@@ -48,7 +48,6 @@ in the JAX package.  Every product runs in full float32 (TF32 off).
 
 from __future__ import annotations
 
-import time
 from collections import Counter
 
 import numpy as np
@@ -59,11 +58,7 @@ from ..engine import estep
 from ..engine.cuda import BatchResult, _indexed
 from ..engine.estep import forward_counts
 from ..engine.tables import estep_tables
-
-# seconds spent since the last reset by DistributedTrainer calls: K1 (the
-# backward recurrence and its stack), the E-step (the forward recurrence
-# and the counts) and the host mapping of expected_segment_counts
-TIMINGS = {"backward_s": 0.0, "estep_s": 0.0, "map_s": 0.0}
+from ..spans import span
 
 
 def local_devices() -> list:
@@ -259,15 +254,13 @@ def _expected_lattice_counts(engine, seqs: torch.Tensor, lens: torch.Tensor,
             "(CudaEngine.STACK_BYTES, this process's share)")
     for s in range(0, B, step):
         sq, ln = seqs[s : s + step].to(dev), lens[s : s + step].to(dev)
-        t0 = time.perf_counter()
-        stack = engine.scorer.backward(sq, ln)
-        _sync(dev)
-        t1 = time.perf_counter()
-        forward_counts(tab, sq, ln, *stack, ct, e)
-        del stack
-        _sync(dev)
-        TIMINGS["backward_s"] += t1 - t0
-        TIMINGS["estep_s"] += time.perf_counter() - t1
+        with span("mesh.backward"):
+            stack = engine.scorer.backward(sq, ln)
+            _sync(dev)
+        with span("mesh.estep"):
+            forward_counts(tab, sq, ln, *stack, ct, e)
+            del stack
+            _sync(dev)
     return _dense(tab, ct.sum), e.sum, n
 
 
@@ -352,7 +345,5 @@ class DistributedTrainer:
         from ..engine.train import lattice_counts_to_counts
 
         CT, E, _ = self.run(seqs, lens)
-        t0 = time.perf_counter()
-        out = lattice_counts_to_counts(self.engine.mb, CT, E)
-        TIMINGS["map_s"] += time.perf_counter() - t0
-        return out
+        with span("mesh.map"):
+            return lattice_counts_to_counts(self.engine.mb, CT, E)

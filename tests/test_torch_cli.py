@@ -166,4 +166,7 @@ def test_profile_writes_a_torch_trace(tmp_path):
           "-engine", "torch", "-profile", str(prof)])
     assert (prof / "trace.json").stat().st_size > 0
     assert (tmp_path / "o_un.fq").exists()
+    names = {ev.get("name") for ev in json.loads((prof / "trace.json").read_text())
+             ["traceEvents"]}
+    assert {"tagdust.runner.label", "tagdust.controller.model_build"} <= names
 
