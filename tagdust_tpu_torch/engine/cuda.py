@@ -136,6 +136,8 @@ class CudaEngine:
             k: t(T[k]) for k in ("is_R", "is_B", "is_F", "null_b", "alt", "seg")
         }
         self._dec_tables["is_r_full"] = t(self._is_r_label())
+        # the keep bits' weights, 128, 64, ..., 1 (np.packbits order)
+        self._dec_tables["bitw"] = t(1 << np.arange(7, -1, -1, dtype=np.int64))
 
     def stack_budget(self) -> int:
         """This process's share of ``STACK_BYTES`` on its card: the budget

@@ -11,6 +11,11 @@ layout the shared host code (``extract.apply_device_decisions``) parses::
 Keep bits are big-endian within each byte (np.unpackbits order).  Integer
 fields are assembled from int64 intermediates byte by byte (little-endian),
 so the rows do not depend on torch's unsigned-integer support.
+
+The device functions build no tensor from host data (their constants come
+in the engine's tables, built once): such a tensor is a synchronous copy,
+which on the card would hold a window's dispatch until its kernels end
+(``tests/test_torch_dispatch_sync.py``).
 """
 
 from __future__ import annotations
@@ -97,7 +102,8 @@ def decided_rows(seqs, lens, labels, q, thr32, minlen: int, T: dict,
     barcode_hmm.c:3203-3304) on the label path, packed into rows.
 
     ``T`` holds label-indexed device tables: ``is_R``, ``is_B``, ``is_F``,
-    ``null_b``, ``alt``, ``seg`` and ``is_r_full`` (the DUST spacer mask).
+    ``null_b``, ``alt``, ``seg`` and ``is_r_full`` (the DUST spacer mask),
+    and ``bitw``, the keep bits' weights 128, 64, ..., 1 (int64).
     ``thr32`` is the f32-ceiled threshold, so ``q >= thr32`` decides like
     the host's float64 compare."""
     B, Lp = seqs.shape
@@ -114,8 +120,7 @@ def decided_rows(seqs, lens, labels, q, thr32, minlen: int, T: dict,
     tB = T["is_B"][labd] & valid
     tF = T["is_F"][labd] & valid
 
-    bitw = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], device=dev)
-    keep_bytes = (keep.reshape(B, Lp // 8, 8).long() * bitw).sum(dim=2)
+    keep_bytes = (keep.reshape(B, Lp // 8, 8).long() * T["bitw"]).sum(dim=2)
 
     passed = q >= float(thr32)  # NaN -> False, like the host compare
     fingerlen = tF.sum(dim=1)

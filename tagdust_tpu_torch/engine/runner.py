@@ -30,7 +30,7 @@ from ..extract import compute_q
 from ..io.fastq import Read
 from ..model import ModelBag
 from ..parallel.mesh import local_devices
-from ..spans import span
+from ..spans import count, span
 from .cuda import BatchResult
 from .decided import collect_decided
 from .exact import ExactEngine
@@ -334,6 +334,18 @@ def _score_batch_columnar(mb, batch, matchstart, matchend, kind):
     return res.labels[:B]
 
 
+def _left_running(rows, ev) -> int:
+    """1 if a window's work is still running on the card once its dispatch
+    has returned, else 0.  ``ev`` is recorded behind the last enqueued rows
+    (one tensor, or the shards' in shard order) and queried once: it never
+    waits.  Its count a job, ``TIMINGS["runner.left_running"]`` over
+    ``runner.dispatch.calls``, is the share of windows whose dispatch left
+    the card working while the host went on."""
+    last = rows[-1] if isinstance(rows, list) else rows
+    ev.record(torch.cuda.current_stream(last.device))
+    return int(not ev.query())
+
+
 def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     """Pipelined labelling: windows of at most 16,384 reads, up to DEPTH in
     flight; the host applies window k's results while the device scores
@@ -390,6 +402,7 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
     thr32 = eng.threshold_f32_ceil(confidence_threshold)
     minlen = int(param.minlen)
     on_card = eng.device.type == "cuda"
+    done = torch.cuda.Event() if on_card else None  # _left_running's
     # device DUST (extracted, raw); a sub-range decode keeps the host's,
     # whose label-buffer quirks differ
     dust_dev = None if sub else np.empty((B, 2), dtype=np.float32)
@@ -467,6 +480,8 @@ def _label_streaming(mb, rs, batch, param, confidence_threshold, kind) -> bool:
             with span("runner.dispatch"):
                 rows = (src.dispatch_decided(seqs, lens_w, thr32, minlen) if decided
                         else src.dispatch_packed(seqs, lens_w))
+            if on_card:
+                count("runner.left_running", _left_running(rows, done))
             inflight.append((s, e, rows))
             if len(inflight) >= DEPTH:
                 _stage()

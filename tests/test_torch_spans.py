@@ -141,6 +141,14 @@ def test_no_range_opens_without_a_profiler(tmp_path, monkeypatch):
     assert opened == []
 
 
+def test_a_count_adds_to_its_key_alone(monkeypatch):
+    monkeypatch.setattr(spans, "TIMINGS", {})
+    spans.count("runner.left_running")
+    spans.count("runner.left_running", 0)
+    spans.count("runner.left_running", 2)
+    assert spans.TIMINGS == {"runner.left_running": 3}
+
+
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     """The ``stream`` job under ``torch.profiler``: the job, the ranges
