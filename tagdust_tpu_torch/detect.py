@@ -9,6 +9,9 @@ emulated thread slice and the slices in thread order
 (``barcode_hmm.c:2111-2148``, ``:1994-2017``), and a softmax, normalised
 twice as the reference does, picks the winner.
 
+The reads stay columnar from the parse to the pick: one ``ReadBatch``
+(``SeqReader.read_chunk_batch``), padded matrices gathered from its arena,
+and the slice sums taken over the [n_arch, numseq] scores as arrays.
 On a device kind (``cuda``, ``torch``) the reads form one padded batch and
 each candidate is scored by ``CudaEngine.backward_scores`` (K4, in the step
 mode the engine's gate picks); on ``exact`` the reads are bucketed by length
@@ -35,25 +38,24 @@ from .engine.runner import (
     resolve_engine,
     thread_slices,
 )
+from .io.batch import padded_matrix
 from .io.fastq import SeqReader
 from .logsum import logsum
 from .model import init_model_bag
-from .spans import span
+from .spans import count, span
 from .stats import get_sequence_stats
 
 NUM_QUERY = 100000
 _F32 = np.float32
 
 
-def _device_scores(reads, models, kind: str) -> np.ndarray:
+def _device_scores(batch, models, kind: str) -> np.ndarray:
     """[n_arch, numseq] logP_b of every read under every candidate, from
     one padded [B, Lmax] batch per candidate (MODE_ARCH_COMP)."""
-    numseq = len(reads)
-    lens = np.fromiter((r.len for r in reads), dtype=np.int32, count=numseq)
+    numseq = batch.B
+    lens = batch.lens.astype(np.int32)
     Lmax = int(lens.max(initial=1))
-    seqs = np.zeros((numseq, Lmax), dtype=np.uint8)
-    for i, r in enumerate(reads):
-        seqs[i, : r.len] = r.seq
+    seqs = padded_matrix(batch.seq_arena, batch.seq_off, lens, Lmax, fill=0)
     seqs_p, lens_p = _pad_tpu_batch(seqs, lens)
     return np.stack([
         get_engine(mb, kind).backward_scores(seqs_p, lens_p)[:numseq]
@@ -61,19 +63,18 @@ def _device_scores(reads, models, kind: str) -> np.ndarray:
     ]).astype(np.float32)
 
 
-def _exact_scores(reads, models) -> np.ndarray:
+def _exact_scores(batch, models) -> np.ndarray:
     """[n_arch, numseq] backward-only scores on the exact engine, the reads
     bucketed by length (the per-read values do not depend on the
     bucketing)."""
-    bscores = np.zeros((len(models), len(reads)), dtype=np.float32)
+    lens = batch.lens
+    bscores = np.zeros((len(models), batch.B), dtype=np.float32)
     engines = [ExactEngine(mb) for mb in models]
-    buckets = {}
-    for idx, r in enumerate(reads):
-        buckets.setdefault(r.len, []).append(idx)
-    for L, idxs in buckets.items():
-        seqs = np.zeros((len(idxs), L + 1), dtype=np.uint8)
-        for bi, idx in enumerate(idxs):
-            seqs[bi, :L] = reads[idx].seq
+    order = np.argsort(lens, kind="stable")
+    Ls, starts = np.unique(lens[order], return_index=True)
+    for L, idxs in zip(Ls.tolist(), np.split(order, starts[1:])):
+        seqs = padded_matrix(batch.seq_arena, batch.seq_off[idxs], lens[idxs],
+                             L + 1, fill=0)
         for a, eng in enumerate(engines):
             bscores[a, idxs] = eng.backward_only(seqs, L)
     return bscores
@@ -92,17 +93,26 @@ def _logsum_all(x: np.ndarray):
     return sm
 
 
-def _pick(bscores: np.ndarray, num_threads: int) -> tuple:
-    """(winner, its probability): float32 slice sums in thread order
-    (barcode_hmm.c:2126-2144, :2000), then run_pHMM's normalisation
-    (:2009-2016) and test_architectures' second one (:191-206)."""
+def _slice_sums(bscores: np.ndarray, num_threads: int) -> np.ndarray:
+    """[n_arch] float32 sums of the scores within each emulated thread slice,
+    the slices added in thread order (barcode_hmm.c:2126-2144, :2000).
+    ``np.add.accumulate`` adds strictly in order, as the reference's per-read
+    loop does; ``np.sum``'s pairwise sum would change the bits."""
     n_arch, numseq = bscores.shape
     posterior = np.zeros(n_arch, dtype=np.float32)
     for s, e in thread_slices(numseq, num_threads):
-        part = np.zeros(n_arch, dtype=np.float32)
-        for i in range(s, e):
-            part = (part + bscores[:, i]).astype(np.float32)
+        part = (np.add.accumulate(bscores[:, s:e], axis=1, dtype=np.float32)[:, -1]
+                if e > s else np.zeros(n_arch, dtype=np.float32))
         posterior = (posterior + part).astype(np.float32)
+    return posterior
+
+
+def _pick(bscores: np.ndarray, num_threads: int) -> tuple:
+    """(winner, its probability): the slice sums, then run_pHMM's
+    normalisation (:2009-2016) and test_architectures' second one
+    (:191-206)."""
+    n_arch = bscores.shape[0]
+    posterior = _slice_sums(bscores, num_threads)
     posterior = (posterior - _logsum_all(posterior)).astype(np.float32)
     sm = _logsum_all(posterior)
     best, best_score = -1, _F32(-1.0)
@@ -144,14 +154,15 @@ def test_architectures(param, file_num: int, log=None) -> ReadStructure:
     if len(candidates) > 1:
         with span("detect.read"):
             reader = SeqReader(path, sam_filter=param.filter)
-            reads = reader.read_chunk(NUM_QUERY)
+            batch = reader.read_chunk_batch(NUM_QUERY)
             reader.close()
+        count("detect.reads", batch.B)
         models = [mb for _, mb in candidates]
         with span("detect.score"):
             if kind in DEVICE_KINDS:
-                bscores = _device_scores(reads, models, kind)
+                bscores = _device_scores(batch, models, kind)
             else:
-                bscores = _exact_scores(reads, models)
+                bscores = _exact_scores(batch, models)
         with span("detect.pick"):
             best, best_score = _pick(bscores, param.num_threads)
         if log:

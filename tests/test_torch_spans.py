@@ -149,6 +149,35 @@ def test_a_count_adds_to_its_key_alone(monkeypatch):
     assert spans.TIMINGS == {"runner.left_running": 3}
 
 
+def test_detection_counts_the_reads_it_scored(jobs):
+    from tagdust_tpu_torch.detect import NUM_QUERY
+
+    t = jobs["arch"]["timings"]
+    assert t["detect.reads"] == min(NUM_QUERY, jobs["arch"]["reads"])
+    assert t["detect.read.calls"] == 1
+    for name in ("stream", "again", "calibrate"):
+        assert "detect.reads" not in jobs[name]["timings"], name
+
+
+@pytest.mark.parametrize("candidates", [3, 1])
+def test_detection_counts_no_more_than_num_query(tmp_path, monkeypatch, candidates):
+    """A file longer than ``NUM_QUERY`` counts ``NUM_QUERY`` reads; an
+    ``-arch`` file of one candidate scores nothing and counts none."""
+    from tagdust_tpu_torch import detect
+
+    for k, v in ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(detect, "NUM_QUERY", 250)
+    lines = ARCH_FILE.splitlines(keepends=True)
+    (tmp_path / "arch.txt").write_text("".join(lines[-candidates:]))
+    t = _job(tmp_path, "arch", 13)["timings"]
+    assert t["detection.calls"] == 1
+    if candidates > 1:
+        assert t["detect.reads"] == 250 and t["detect.read.calls"] == 1
+    else:
+        assert "detect.reads" not in t and "detect.read.calls" not in t
+
+
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     """The ``stream`` job under ``torch.profiler``: the job, the ranges
